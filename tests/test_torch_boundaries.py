@@ -15,7 +15,7 @@ PORT_FILES = sorted((REPO / "vis_tpu_torch").rglob("*.py")) + [REPO / "chip_smok
 KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n for n in ("quantized.py", "flash_attention.py")]
 FORBIDDEN_CALLS = {"scaled_dot_product_attention", "compile", "multi_head_attention_forward",
                    "_scaled_dot_product_flash_attention", "_scaled_dot_product_efficient_attention"}
-WRAPPERS = ("q4_matmul", "q4_matmul_stacked", "flash_attention")
+WRAPPERS = ("q4_matmul", "q4_matmul_stacked", "flash_attention", "q8_matmul")
 
 
 def _imports(path):

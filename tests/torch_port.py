@@ -28,3 +28,22 @@ def run_port(case: str, inputs: dict, tmp_dir: Path, timeout: int = 600) -> dict
         pytest.fail(f"port runner '{case}' failed:\n{proc.stderr[-4000:]}")
     with np.load(out_path, allow_pickle=False) as out:
         return {k: out[k] for k in out.files}
+
+
+def flatten_params(tree, prefix: str, out: dict) -> dict:
+    """A JAX parameter tree as "/"-joined key paths -> numpy, the form the
+    port's ``params_from_numpy`` takes back: list items by index, an int4
+    or int8 quantized weight as ".../q" and ".../scale"."""
+    from vis_tpu.ops.quantized import QuantizedWeight, QuantizedWeight4
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            flatten_params(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            flatten_params(v, f"{prefix}/{i}", out)
+    elif isinstance(tree, (QuantizedWeight, QuantizedWeight4)):
+        out[f"{prefix}/q"], out[f"{prefix}/scale"] = np.asarray(tree.q), np.asarray(tree.scale)
+    else:
+        out[prefix] = np.asarray(tree)
+    return out

@@ -1,17 +1,21 @@
-"""Profile one inspector request of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Profile the PyTorch/CUDA port's decode on one NVIDIA GPU.
 
-    python3 tools/profile_port_decode.py [--out chiprun_out/profile_port_decode.txt]
+    python3 tools/profile_port_decode.py [--role inspector|explainer]
+        [--out chiprun_out/profile_port_decode.txt]
 
-Builds the kernels and the Qwen2.5-VL-7B int4 inspector (random weights,
-chip_smoke.py's seed and serving profile), sends assets/sample.jpg through
-run_inspection three times (a warm-up, one timed request, one request under
-torch.profiler) and prints:
+Builds the kernels and chip_smoke.py's engines (random weights, its seed
+and serving profile: the Qwen2.5-VL-7B int4 inspector and the Llama-3.1-8B
+explainer on the port, the auditor mocked; for ``--role inspector`` the
+explainer mocked too) and sends assets/sample.jpg through run_inspection
+once to warm up.  Then, for ``--role inspector``,
+run_inspection twice (one timed request, one under torch.profiler); for
+``--role explainer``, the explainer's report bundle on that request's
+findings twice (timed, profiled), through the paged scheduler.  It prints:
 
-- for each request, wall time, the engine's spans, decode tokens and
-  lookahead windows (one vocab-head launch after prefill and one after
-  every window);
-- for the profiled request, device self time and the busy share (device
-  time over the profiled wall and over the timed request's wall);
+- for each run, wall time, the spans, decode tokens and lookahead windows
+  (inspector) or scheduler steps (explainer);
+- for the profiled run, device self time and the busy share (device time
+  over the profiled wall and over the timed run's wall);
 - the host's cudaLaunchKernel and cudaStreamSynchronize calls;
 - device time per kernel, largest first.
 
@@ -40,11 +44,14 @@ def _device_us(evt) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--role", choices=("inspector", "explainer"), default="inspector")
     ap.add_argument("--out", default="chiprun_out/profile_port_decode.txt")
     args = ap.parse_args()
 
     for key, value in chip_smoke.PROFILE.items():
         os.environ[key] = value
+    if args.role == "inspector":
+        os.environ["EXPLAINER_PROVIDER"] = "mock"
     chip_smoke.WORK.mkdir(parents=True, exist_ok=True)
     chip_smoke.phase_card()
     chip_smoke.phase_build()
@@ -52,21 +59,23 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from vis_tpu.agents import get_inspector
+    from vis_tpu.agents import get_explainer, get_inspector
     from vis_tpu.orchestration.graph import run_inspection
+    from vis_tpu.schemas.models import VLMAnalysisResult
     from vis_tpu.utils.logger import get_timings
     from vis_tpu_torch import agents as port_agents
     from vis_tpu_torch.ops import quantized as qz
 
     port_agents.install("cuda:0", seed=chip_smoke.SEED)
     engine = get_inspector().backend.engine
+    state = {}
 
     def request(label: str) -> float:
         get_timings(reset=True)
         qz.q4_matmul.launches = 0
         start = time.perf_counter()
-        state = run_inspection(str(chip_smoke.SAMPLE), criticality="high",
-                               domain="general", user_notes="profile")
+        state.update(run_inspection(str(chip_smoke.SAMPLE), criticality="high",
+                                    domain="general", user_notes="profile"))
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         if state["inspector_result"]["analysis_failed"]:
@@ -77,10 +86,28 @@ def main() -> int:
               f"{engine.last_decode_tokens}, windows {qz.q4_matmul.launches - 1}")
         return wall
 
+    def bundle(label: str) -> float:
+        result = VLMAnalysisResult(**state["inspector_result"])
+        auditor = VLMAnalysisResult(**state["auditor_result"])
+        scheduler = get_explainer().backend.engine.scheduler
+        get_timings(reset=True)
+        steps = scheduler.stats["steps"]
+        start = time.perf_counter()
+        get_explainer().generate_report_bundle(result, auditor, state["consensus"],
+                                               state["safety_verdict"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        steps = scheduler.stats["steps"] - steps
+        spans = {k: round(sum(v), 4) for k, v in get_timings().items()}
+        print(f"[{label}] bundle wall {wall:.3f} s, spans {spans}, scheduler steps {steps} "
+              f"({1e3 * wall / max(steps, 1):.2f} ms a step over the wall)")
+        return wall
+
+    run = bundle if args.role == "explainer" else request
     request("warm-up")
-    timed = request("timed")
+    timed = run("timed")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = request("profiled")
+        wall = run("profiled")
     averages = prof.key_averages()
     device_us = sum(_device_us(e) for e in averages)
     print(f"[profiled] device self time {device_us / 1e6:.3f} s, busy share "

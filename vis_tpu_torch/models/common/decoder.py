@@ -1,4 +1,4 @@
-"""GQA transformer decoder with a dense KV cache: the Qwen2.5-VL text stack.
+"""GQA transformer decoder: the Qwen2.5-VL and Llama text stacks.
 
 Counterpart of the scan-execution half of ``vis_tpu/models/common/decoder.py``.
 Layer parameters are stacked ([L, ...] leaves, int4 leaves as
@@ -7,15 +7,20 @@ the place of ``lax.scan``, and ``_pick_layer`` hands each layer's int4
 weights to kernel A as a view of the stack.  Cache cursors are kept on the
 host too, so writing a chunk's K/V never reads the device.
 
-Decode is ``decode_loop_lookahead``: schema-constrained windows of
-``window`` tokens, one weight pass and one host sync per window.
+Decode over a dense per-request cache is ``decode_loop_lookahead``:
+schema-constrained windows of ``window`` tokens, one weight pass and one
+host sync per window.  Decode over the scheduler's paged KV pool is
+``decode_loop_paged`` (greedy) and ``decode_loop_paged_constrained`` (a
+per-row grammar over stacked tables, greedy or per-row Gumbel-sampled),
+one token per weight pass for every slot at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from vis_tpu_torch.models.common.layers import (
@@ -32,9 +37,12 @@ from vis_tpu_torch.models.common.layers import (
     swiglu_mlp,
 )
 from vis_tpu_torch.ops.quantized import (
+    QuantizedWeight,
     QuantizedWeight4,
     QuantizedWeight4Pick,
+    quantize_weight,
     quantize_weight4,
+    quantized_matmul,
     quantized_matmul4,
 )
 
@@ -54,8 +62,13 @@ class DecoderConfig:
     rms_norm_eps: float = 1e-6
     qkv_bias: bool = True
     mrope_section: Optional[Tuple[int, int, int]] = None
+    rope_scaling: Optional[Tuple[Tuple[str, Any], ...]] = None  # llama3 scheme
     tie_word_embeddings: bool = False
     dtype: Any = torch.bfloat16
+
+    @property
+    def rope_scaling_dict(self) -> Optional[Dict[str, Any]]:
+        return dict(self.rope_scaling) if self.rope_scaling else None
 
     @property
     def head_dim_(self) -> int:
@@ -70,7 +83,78 @@ def _position_tables(config: DecoderConfig, positions: torch.Tensor):
         return mrope_cos_sin(
             positions, config.head_dim_, config.mrope_section, config.rope_theta
         )
-    return rope_cos_sin(positions, config.head_dim_, config.rope_theta)
+    return rope_cos_sin(positions, config.head_dim_, config.rope_theta,
+                        config.rope_scaling_dict)
+
+
+def init_decoder_params(config: DecoderConfig, generator: torch.Generator,
+                        device="cpu", scale: float = 0.02) -> Params:
+    """Random-normal weights (norms one, biases zero) in the per-layer layout
+    of the JAX package's ``init_decoder_params``, drawn from ``generator``."""
+    hd, h, dtype = config.head_dim_, config.hidden_size, config.dtype
+
+    def norm(*shape):
+        return (scale * torch.randn(shape, generator=generator, device=device)).to(dtype)
+
+    def ones(n):
+        return torch.ones(n, dtype=dtype, device=device)
+
+    params: Params = {
+        "embed_tokens": norm(config.vocab_size, h),
+        "final_norm": ones(h),
+        "layers": [],
+    }
+    if not config.tie_word_embeddings:
+        params["lm_head"] = norm(config.vocab_size, h)
+    for _ in range(config.num_layers):
+        layer = {
+            "input_norm": ones(h), "post_attn_norm": ones(h),
+            "q_proj": norm(config.num_heads * hd, h),
+            "k_proj": norm(config.num_kv_heads * hd, h),
+            "v_proj": norm(config.num_kv_heads * hd, h),
+            "o_proj": norm(h, config.num_heads * hd),
+            "mlp": {
+                "gate_proj": norm(config.intermediate_size, h),
+                "up_proj": norm(config.intermediate_size, h),
+                "down_proj": norm(h, config.intermediate_size),
+            },
+        }
+        if config.qkv_bias:
+            layer["q_bias"] = torch.zeros(config.num_heads * hd, dtype=dtype, device=device)
+            layer["k_bias"] = torch.zeros(config.num_kv_heads * hd, dtype=dtype, device=device)
+            layer["v_bias"] = torch.zeros(config.num_kv_heads * hd, dtype=dtype, device=device)
+        params["layers"].append(layer)
+    return params
+
+
+def params_from_numpy(flat: Mapping[str, np.ndarray], dtype, device="cpu") -> Params:
+    """Rebuild a parameter tree from the JAX package's, flattened to
+    "/"-joined key paths -> numpy (list items by index; a quantized weight
+    as ".../q" and ".../scale": u8 q is int4, i8 q is int8).  Float leaves
+    take ``dtype``; quantized bytes keep theirs and scales stay f32."""
+    tree: Dict[str, Any] = {}
+    for path, value in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+
+    def tensor(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    def build(node):
+        if isinstance(node, np.ndarray):
+            t = tensor(node)
+            return t.to(dtype) if t.is_floating_point() else t
+        if set(node) == {"q", "scale"}:
+            cls = QuantizedWeight if node["q"].dtype == np.int8 else QuantizedWeight4
+            return cls(q=tensor(node["q"]), scale=tensor(node["scale"].astype(np.float32)))
+        if node and all(k.isdigit() for k in node):
+            return [build(node[str(i)]) for i in range(len(node))]
+        return {k: build(v) for k, v in node.items()}
+
+    return build(tree)
 
 
 # ---------------------------------------------------------------------------
@@ -115,9 +199,11 @@ def fuse_stacked_projections(stacked: Params) -> Params:
 def quantize_stacked_params(stacked: Params, quantize_embeddings: bool = False,
                             vocab_mode: str = "int4") -> Params:
     """Int4 weight-only quantization of the stacked projections (and, with
-    quantize_embeddings, of the vocab tables, rows padded to 512)."""
-    if vocab_mode not in ("int4", "none"):
-        raise ValueError(f"vocab_mode {vocab_mode!r}: the port has int4 and none")
+    quantize_embeddings, of the vocab tables, rows padded to 512: int4 or
+    int8 by ``vocab_mode``)."""
+    if vocab_mode not in ("int4", "int8", "none"):
+        raise ValueError(f"vocab_mode {vocab_mode!r}: the port has int4, int8 and none")
+    quantize_vocab = quantize_weight4 if vocab_mode == "int4" else quantize_weight
 
     def quantize_stack(w):
         qws = [quantize_weight4(layer) for layer in w]
@@ -127,10 +213,10 @@ def quantize_stacked_params(stacked: Params, quantize_embeddings: bool = False,
         )
 
     out = {k: v for k, v in stacked.items() if k != "layers_stacked"}
-    if quantize_embeddings and vocab_mode == "int4":
+    if quantize_embeddings and vocab_mode != "none":
         for name in ("embed_tokens", "lm_head"):
             if name in out:
-                out[name] = quantize_weight4(out[name], pad_out_multiple=512)
+                out[name] = quantize_vocab(out[name], pad_out_multiple=512)
     layers = dict(stacked["layers_stacked"])
     for name in _QUANT_TARGETS:
         if name in layers:
@@ -223,12 +309,14 @@ def _layer_body(
 
 
 def lm_logits(config: DecoderConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """f32 logits [..., vocab]; an int4 table goes through kernel B (its
-    zero-padded rows are sliced off)."""
+    """f32 logits [..., vocab]; an int4 table goes through kernel B, an int8
+    table through kernel D (their zero-padded rows are sliced off)."""
     table = params["embed_tokens"] if config.tie_word_embeddings else params["lm_head"]
     flat = hidden.reshape(-1, hidden.shape[-1])
     if isinstance(table, QuantizedWeight4):
         out = quantized_matmul4(flat, table)
+    elif isinstance(table, QuantizedWeight):
+        out = quantized_matmul(flat, table)
     else:
         out = matmul_f32(flat, table.T)
     return out[:, :config.vocab_size].reshape(*hidden.shape[:-1], config.vocab_size)
@@ -313,29 +401,37 @@ class DecodeConstraint(NamedTuple):
     """Grammar state for constrained decode (tables from
     vis_tpu.serving.schema / constrained, moved to the device).  The allowed
     set is token_ok[state] & (cost_after[state] < remaining), with closing
-    moves blocked while remaining > min_remaining."""
+    moves blocked while remaining > min_remaining.  With ``table_idx`` the
+    tables are stacked [T, S, K] (and ``class_of`` [T, V]) and each row
+    reads its own grammar: the scheduler's slots mix free-form, generic-JSON
+    and schema rows in one batch."""
 
-    token_ok: torch.Tensor     # [S, K] bool
-    token_trans: torch.Tensor  # [S, K] int32
-    cost_after: torch.Tensor   # [S, K] int32
+    token_ok: torch.Tensor     # [S, K] bool (or [T, S, K] with table_idx)
+    token_trans: torch.Tensor  # [S, K] int32 (or [T, S, K])
+    cost_after: torch.Tensor   # [S, K] int32 (or [T, S, K])
     state: torch.Tensor        # [b] int
     remaining: torch.Tensor    # [b] int
     active: torch.Tensor       # [b] bool
     min_remaining: torch.Tensor  # [b] int
-    class_of: Optional[torch.Tensor] = None  # [V] column of each vocab id
+    class_of: Optional[torch.Tensor] = None  # [V] (or [T, V]) column of each vocab id
+    table_idx: Optional[torch.Tensor] = None  # [b] grammar of each row
 
 
 def constrained_pick(logits: torch.Tensor, constraint: DecodeConstraint,
                      pick_fn: Callable[[torch.Tensor], torch.Tensor]):
     """Mask the logits to grammar-legal, budget-feasible tokens (every
     column past the table width too), pick with ``pick_fn``, advance the
-    DFA.  Returns (token [b], constraint')."""
+    DFA.  Inactive rows see the raw logits.  Returns (token [b],
+    constraint')."""
     c = constraint
     state = c.state.long()
-    ok_row = c.token_ok[state]
-    cost_row = c.cost_after[state]
+    stacked = c.token_ok.dim() == 3
+    tbl = c.table_idx.long() if stacked else None
+    ok_row = c.token_ok[tbl, state] if stacked else c.token_ok[state]
+    cost_row = c.cost_after[tbl, state] if stacked else c.cost_after[state]
     if c.class_of is not None:
-        cls_rows = c.class_of[None].expand(ok_row.shape[0], -1)
+        cls_rows = (c.class_of[tbl] if stacked
+                    else c.class_of[None].expand(ok_row.shape[0], -1)).long()
         ok_row = torch.gather(ok_row, 1, cls_rows)
         cost_row = torch.gather(cost_row, 1, cls_rows)
     k = ok_row.shape[-1]
@@ -353,7 +449,7 @@ def constrained_pick(logits: torch.Tensor, constraint: DecodeConstraint,
     token = pick_fn(masked).to(torch.int64)
     clipped = torch.clamp_max(token, k - 1)
     col = clipped if c.class_of is None else cls_rows.gather(1, clipped[:, None])[:, 0]
-    trans = c.token_trans[state, col]
+    trans = c.token_trans[tbl, state, col] if stacked else c.token_trans[state, col]
     new_state = torch.where(c.active, trans.to(c.state.dtype), c.state)
     return token, c._replace(state=new_state, remaining=c.remaining - 1)
 
@@ -463,16 +559,156 @@ def decode_loop_lookahead(
     return tokens_out, valid_out, logits, cache, con
 
 
+# ---------------------------------------------------------------------------
+# Paged decode (the continuous-batching scheduler's slots)
+# ---------------------------------------------------------------------------
+
+def _paged_token_step(
+    config: DecoderConfig, params: Params, token: torch.Tensor, pos_vec: torch.Tensor,
+    pool_k: torch.Tensor, pool_v: torch.Tensor, page_tables: torch.Tensor,
+    lengths: torch.Tensor,
+) -> torch.Tensor:
+    """One decode step for every slot over a paged KV pool
+    (pool [L, n_pages, page, kvh, hd], page_tables [slots, max_pages]):
+    each layer gathers a slot's pages into a [slots, max_pages * page] key
+    window masked past its cursor, the new token attends to itself out of
+    the pool, and after the stack every layer's new K/V lands in place at
+    (page_tables[i, len // page], len % page).  Returns the next logits
+    [slots, vocab]; the caller advances ``lengths``."""
+    slots, max_pages = page_tables.shape
+    page = pool_k.shape[2]
+    width = max_pages * page
+    positions = pos_vec[:, None]
+    if config.mrope_section is not None:
+        positions = positions[None].expand(3, slots, 1)
+    cos, sin = _position_tables(config, positions)
+    x = embed(token[:, None], params["embed_tokens"])
+    kj = torch.arange(width, device=token.device)
+    cache_mask = torch.where(kj[None, :] < lengths[:, None], 0.0, -1e30).to(
+        torch.float32)[:, None, None, :]
+    stacked = params["layers_stacked"]
+    new_k, new_v = [], []
+    for idx in range(num_stacked_layers(stacked)):
+        ck = pool_k[idx][page_tables].reshape(slots, width, *pool_k.shape[3:])
+        cv = pool_v[idx][page_tables].reshape(slots, width, *pool_v.shape[3:])
+        x, k, v = _layer_body(
+            config, x, _pick_layer(stacked, idx), cos, sin, None, ck, cv, cache_mask
+        )
+        new_k.append(k[:, 0])
+        new_v.append(v[:, 0])
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    logits = lm_logits(config, params, x)[:, 0]
+    rows = torch.arange(slots, device=token.device)
+    page_idx = page_tables[rows, torch.div(lengths, page, rounding_mode="floor").long()].long()
+    offset = (lengths % page).long()
+    pool_k[:, page_idx, offset] = torch.stack(new_k).to(pool_k.dtype)
+    pool_v[:, page_idx, offset] = torch.stack(new_v).to(pool_v.dtype)
+    return logits
+
+
+def _eos_loop(slots: int, num_steps: int, eos_id: int, budget: Sequence[int],
+              step_fn, device) -> torch.Tensor:
+    """The early-exit scaffold of the paged decode loops: run
+    ``step_fn(step_idx) -> token [slots]`` until every row has emitted EOS
+    or spent its per-row ``budget`` (a host list; rows with budget <= 0
+    start done: inactive scheduler slots), checking ``done`` on the host
+    once per step as the JAX loop's condition does.  Token slots past a
+    row's EOS read ``eos_id``.  Returns tokens [slots, num_steps].
+
+    CURSOR CONTRACT (the JAX package's): done rows keep stepping, their
+    recorded token masked to ``eos_id``, and their cursors still advance
+    past garbage writes; a caller chaining chunks rewinds them on the host."""
+    tokens = torch.full((slots, num_steps), eos_id, dtype=torch.int64, device=device)
+    budget_dev = torch.tensor(list(budget), dtype=torch.int64, device=device)
+    done = budget_dev <= 0
+    for step_idx in range(min(num_steps, max(budget))):
+        if bool(done.all()):
+            break
+        token = torch.where(done, eos_id, step_fn(step_idx))
+        tokens[:, step_idx] = token
+        done = done | (token == eos_id) | (step_idx + 1 >= budget_dev)
+    return tokens
+
+
+def decode_loop_paged(
+    config: DecoderConfig, params: Params, first_logits: torch.Tensor,
+    start_position: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+    page_tables: torch.Tensor, lengths: torch.Tensor, num_steps: int, *,
+    eos_id: int, budget: Sequence[int],
+):
+    """Greedy decode of up to ``num_steps`` tokens for every slot over the
+    paged pool (updated in place), ending once every row has hit EOS or its
+    host-side ``budget``.  Returns (tokens [slots, num_steps] on the device,
+    last logits, pool_k, pool_v, lengths)."""
+    slots = page_tables.shape[0]
+    start = torch.as_tensor(start_position, dtype=torch.int32,
+                            device=first_logits.device).expand(slots)
+    carry = {"logits": first_logits, "lengths": lengths}
+
+    def step(step_idx):
+        token = torch.argmax(carry["logits"], dim=-1)
+        carry["logits"] = _paged_token_step(
+            config, params, token, start + step_idx, pool_k, pool_v, page_tables,
+            carry["lengths"])
+        carry["lengths"] = carry["lengths"] + 1
+        return token
+
+    tokens = _eos_loop(slots, num_steps, eos_id, budget, step, first_logits.device)
+    return tokens, carry["logits"], pool_k, pool_v, carry["lengths"]
+
+
+def decode_loop_paged_constrained(
+    config: DecoderConfig, params: Params, first_logits: torch.Tensor,
+    start_position: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
+    page_tables: torch.Tensor, lengths: torch.Tensor, constraint: DecodeConstraint,
+    num_steps: int, *, eos_id: int, budget: Sequence[int],
+    draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
+    temperature=None,
+):
+    """``decode_loop_paged`` with each row's grammar mask (rows with
+    ``active`` False decode free-form).  With ``draw_uniforms`` every step
+    samples Gumbel-max per row at ``temperature`` ([slots]; rows at <= 0
+    stay exact-greedy) from ``draw_uniforms(logits.shape)``, uniforms in
+    (0, 1].  Returns (tokens, last logits, pool_k, pool_v, lengths,
+    constraint)."""
+    slots = page_tables.shape[0]
+    start = torch.as_tensor(start_position, dtype=torch.int32,
+                            device=first_logits.device).expand(slots)
+    carry = {"logits": first_logits, "lengths": lengths, "con": constraint}
+
+    def step(step_idx):
+        logits = carry["logits"]
+        if draw_uniforms is not None:
+            u = draw_uniforms(tuple(logits.shape))
+            token, con = constrained_pick(
+                logits, carry["con"], lambda m: gumbel_sample_token(m, u, temperature))
+        else:
+            token, con = constrained_argmax(logits, carry["con"])
+        carry["con"] = con
+        carry["logits"] = _paged_token_step(
+            config, params, token, start + step_idx, pool_k, pool_v, page_tables,
+            carry["lengths"])
+        carry["lengths"] = carry["lengths"] + 1
+        return token
+
+    tokens = _eos_loop(slots, num_steps, eos_id, budget, step, first_logits.device)
+    return tokens, carry["logits"], pool_k, pool_v, carry["lengths"], carry["con"]
+
+
 __all__ = [
     "DecodeConstraint",
     "DecoderConfig",
     "constrained_argmax",
     "constrained_pick",
     "decode_loop_lookahead",
+    "decode_loop_paged",
+    "decode_loop_paged_constrained",
     "extend_scan",
     "fuse_stacked_projections",
     "gumbel_sample_token",
+    "init_decoder_params",
     "lm_logits",
+    "params_from_numpy",
     "prefill_scan",
     "quantize_stacked_params",
     "stack_decoder_layers",

@@ -9,14 +9,18 @@ and returns f32 before the cast back (the JAX package's
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from vis_tpu_torch.ops.quantized import (
+    QuantizedWeight,
     QuantizedWeight4,
     QuantizedWeight4Pick,
     embed_rows4,
+    embed_rows8,
+    quantized_linear,
     quantized_linear4,
     quantized_linear4_stacked,
 )
@@ -38,7 +42,9 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def linear(x: torch.Tensor, weight: Any, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ W^T (+ b), W laid out [out, in]; int4 weights go to the int4
-    matmuls (kernels A and B)."""
+    matmuls (kernels A and B), int8 weights to kernel D."""
+    if isinstance(weight, QuantizedWeight):
+        return quantized_linear(x, weight, bias)
     if isinstance(weight, QuantizedWeight4):
         return quantized_linear4(x, weight, bias)
     if isinstance(weight, QuantizedWeight4Pick):
@@ -50,20 +56,43 @@ def linear(x: torch.Tensor, weight: Any, bias: Optional[torch.Tensor] = None) ->
 
 
 def embed(token_ids: torch.Tensor, table: Any) -> torch.Tensor:
+    if isinstance(table, QuantizedWeight):
+        return embed_rows8(table, token_ids)
     if isinstance(table, QuantizedWeight4):
         return embed_rows4(table, token_ids)
     return table[token_ids]
 
 
-def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_frequencies(head_dim: int, theta: float, device=None,
+                     rope_scaling: Optional[Dict[str, Any]] = None) -> torch.Tensor:
+    """Inverse frequencies [head_dim // 2], f32.  ``rope_scaling`` takes the
+    Llama-3 scheme ({"rope_type": "llama3", "factor", "low_freq_factor",
+    "high_freq_factor", "original_max_position_embeddings"}): low
+    frequencies divided by ``factor``, high ones kept, the band between
+    interpolated."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exponent)
+    inv_freq = 1.0 / (theta ** exponent)
+    if rope_scaling and rope_scaling.get("rope_type") == "llama3":
+        factor = rope_scaling["factor"]
+        low = rope_scaling["low_freq_factor"]
+        high = rope_scaling["high_freq_factor"]
+        old_len = rope_scaling["original_max_position_embeddings"]
+        wavelen = 2 * math.pi / inv_freq
+        scaled = inv_freq / factor
+        smooth = (old_len / wavelen - low) / (high - low)
+        interp = (1 - smooth) / factor * inv_freq + smooth * inv_freq
+        inv_freq = torch.where(
+            wavelen < old_len / high, inv_freq,
+            torch.where(wavelen > old_len / low, scaled, interp),
+        )
+    return inv_freq
 
 
-def rope_cos_sin(positions: torch.Tensor, head_dim: int,
-                 theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float = 10000.0,
+                 rope_scaling: Optional[Dict[str, Any]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin [..., head_dim] (half-split layout) for integer positions."""
-    inv_freq = rope_frequencies(head_dim, theta, positions.device)
+    inv_freq = rope_frequencies(head_dim, theta, positions.device, rope_scaling)
     angles = positions.to(torch.float32)[..., None] * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
@@ -173,5 +202,6 @@ __all__ = [
     "mrope_cos_sin",
     "rms_norm",
     "rope_cos_sin",
+    "rope_frequencies",
     "swiglu_mlp",
 ]

@@ -12,9 +12,9 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from vis_tpu_torch.models.common.decoder import params_from_numpy
 from vis_tpu_torch.models.common.layers import embed
 from vis_tpu_torch.models.qwen2_5_vl.config import Qwen25VLConfig
-from vis_tpu_torch.ops.quantized import QuantizedWeight4
 
 Params = Dict[str, Any]
 
@@ -90,34 +90,15 @@ def init_params(config: Qwen25VLConfig, generator: torch.Generator,
 def from_jax_numpy(flat: Mapping[str, np.ndarray], config: Qwen25VLConfig,
                    device="cpu") -> Params:
     """Rebuild the port's parameter tree from the JAX package's, flattened to
-    "/"-joined key paths -> numpy (list items by index; an int4 weight as
-    ".../q" and ".../scale").  Float leaves take the model's dtype, int4
-    bytes and scales keep theirs."""
-    tree: Dict[str, Any] = {}
+    "/"-joined key paths -> numpy under "vision/" and "text/" (see
+    ``params_from_numpy``).  Float leaves take each tower's dtype."""
+    parts: Dict[str, Dict[str, np.ndarray]] = {"vision": {}, "text": {}}
     for path, value in flat.items():
-        node = tree
-        *parents, leaf = path.split("/")
-        for part in parents:
-            node = node.setdefault(part, {})
-        node[leaf] = value
-
-    def build(node, dtype):
-        if isinstance(node, np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(node)).to(device)
-            return t.to(dtype) if t.is_floating_point() else t
-        if set(node) == {"q", "scale"}:
-            return QuantizedWeight4(
-                q=torch.from_numpy(np.ascontiguousarray(node["q"])).to(device),
-                scale=torch.from_numpy(
-                    np.ascontiguousarray(node["scale"], dtype=np.float32)).to(device),
-            )
-        if node and all(k.isdigit() for k in node):
-            return [build(node[str(i)], dtype) for i in range(len(node))]
-        return {k: build(v, dtype) for k, v in node.items()}
-
+        head, rest = path.split("/", 1)
+        parts[head][rest] = value
     return {
-        "vision": build(tree["vision"], config.vision.dtype),
-        "text": build(tree["text"], config.text.dtype),
+        "vision": params_from_numpy(parts["vision"], config.vision.dtype, device),
+        "text": params_from_numpy(parts["text"], config.text.dtype, device),
     }
 
 

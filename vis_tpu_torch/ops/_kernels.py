@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
 The sources in ``vis_tpu_torch/csrc/*.cu`` expose plain ``extern "C"``
-entry points; on first use they are compiled by ``nvcc`` for ``sm_90a``
-into one shared library under ``build/vis_tpu_torch/`` (next to the
-package) and bound with ctypes.  The library's file name carries a hash of
+entry points; on first use each is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library under ``build/vis_tpu_torch/`` (next to the package) and
+bound with ctypes.  The library's file name carries a hash of
 the sources, so an edited source builds anew.  Nothing here runs at import
 time: CPU-only processes (the tests) import this module freely and never
 build anything.
@@ -21,6 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional
 
@@ -29,7 +31,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "vis_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +42,7 @@ _SIGNATURES = {
     "vt_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_q4_matmul_stacked": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+    "vt_q8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -71,19 +74,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"libvis_tpu_torch_{digest.hexdigest()[:16]}.so"
 
 
-def _build(target: Path) -> None:
-    global build_seconds
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
-    start = time.perf_counter()
+def _run(cmd) -> None:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
+
+
+def _build(target: Path) -> None:
+    """One nvcc per source, all at once, then one link into ``target``."""
+    global build_seconds
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{target.stem}.{os.getpid()}"
+    objects, compiles = [], []
+    for src in (s for s in _sources() if s.suffix == ".cu"):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objects.append(obj)
+        compiles.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)])
+    start = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+        for done in [pool.submit(_run, cmd) for cmd in compiles]:
+            done.result()
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    _run([nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objects]])
     os.replace(tmp, target)
+    for obj in objects:
+        obj.unlink()
     build_seconds = time.perf_counter() - start
 
 

@@ -1,6 +1,6 @@
-"""Int4 weight-only quantization and the int4 matmul kernels (A and B).
+"""Weight-only quantization and its matmul kernels: int4 (A and B), int8 (D).
 
-Counterpart of ``vis_tpu/ops/quantized.py`` (int4 half).  Same byte layout:
+Counterpart of ``vis_tpu/ops/quantized.py``.  Int4 has the same byte layout:
 ``q [out, in//2]`` u8 packs input j (low nibble) and input j + in//2 (high
 nibble), both stored as value+8; ``scale [out, 2]`` f32 holds one scale per
 output row per input half; vocab tables pad their rows with zeros.
@@ -15,12 +15,22 @@ f32, f32 out.  Two kernels carry it on the card (``csrc/q4_matmul.cu``):
   ``idx`` of a stacked ``[L, out, in//2]`` weight, every decoder projection
   of a decode window.
 
+Int8 (``QuantizedWeight``: q [out, in] int8, scale [out] f32, per output
+row) has the TPU kernel's semantics, not the JAX CPU fallback's: x rounded
+to bf16, products of x and the exact int8 value summed in f32, and the sum
+multiplied by ``scale[o]`` afterwards.  Kernel D carries it on the card
+(``csrc/q8_matmul.cu``):
+
+- ``q8_matmul`` (kernel D, TPU ``_q8_matmul_kernel``): the explainer's int8
+  vocab head.
+
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); ``launches`` counts the kernel
 launches.  Dispatch follows the JAX package's shape rule: the kernels take
-at most ``MAX_KERNEL_ROWS`` rows and an ``in//2`` that is a multiple of 16
-(their 16-byte loads); other inputs (prefill, the vision tower) dequantize
-the weight and call ``torch.matmul``, as the JAX package leaves them to XLA.
+at most ``MAX_KERNEL_ROWS`` rows and a row length that is a multiple of 16
+bytes (their 16-byte loads); other inputs (prefill, the vision tower)
+dequantize the weight and call ``torch.matmul``, as the JAX package leaves
+them to XLA.
 """
 
 from __future__ import annotations
@@ -191,17 +201,122 @@ def embed_rows4(table: QuantizedWeight4, token_ids: torch.Tensor) -> torch.Tenso
     return unpack_int4(table.q[token_ids], table.scale[token_ids])
 
 
+# ---------------------------------------------------------------------------
+# Int8 (kernel D)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class QuantizedWeight:
+    """Per-output-row symmetric int8 weight: q [out, in] int8, scale [out]
+    f32, w ~ q * scale[:, None]."""
+
+    q: torch.Tensor
+    scale: torch.Tensor
+
+    def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
+        return (self.q.to(torch.float32) * self.scale[:, None]).to(dtype)
+
+
+def quantize_weight(w: torch.Tensor, pad_out_multiple: int = 1) -> QuantizedWeight:
+    """Symmetric per-row int8 quantization; the same bytes as
+    ``vis_tpu.ops.quantized.quantize_weight``.  ``pad_out_multiple`` pads the
+    rows with zeros (scale 0, so their outputs are exactly 0)."""
+    w32 = w.to(torch.float32)
+    scale = torch.clamp_min(w32.abs().amax(dim=1), 1e-8) / 127.0
+    q = torch.clamp(torch.round(w32 / scale[:, None]), -127, 127).to(torch.int8)
+    out = q.shape[0]
+    if pad_out_multiple > 1 and out % pad_out_multiple:
+        pad = pad_out_multiple - out % pad_out_multiple
+        q = torch.nn.functional.pad(q, (0, 0, 0, pad))
+        scale = torch.nn.functional.pad(scale, (0, pad))
+    return QuantizedWeight(q=q, scale=scale)
+
+
+def q8_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel D: (bf16(x) . q^T, f32 sums) * scale
+    -> [B, O] f32."""
+    return (x.to(torch.bfloat16).to(torch.float32) @ q.to(torch.float32).T) * scale
+
+
+def q8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Kernel D wrapper: x [B, I] . q^T * scale for an int8 weight -> [B, O] f32."""
+    if x.device.type == "cpu":
+        return q8_matmul_plain(x, q, scale)
+    from vis_tpu_torch.ops import _kernels
+
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"int8 kernel wants i8 q / f32 scale, got {q.dtype} / {scale.dtype}")
+    if not (q.is_contiguous() and scale.is_contiguous()):
+        raise ValueError("int8 kernel needs contiguous q and scale")
+    if x.device != q.device or scale.device != q.device:
+        raise ValueError("int8 kernel operands must share one device")
+    batch, in_dim = x.shape
+    out_dim = q.shape[0]
+    if q.shape != (out_dim, in_dim) or scale.shape != (out_dim,):
+        raise ValueError(f"int8 kernel shapes disagree: x {tuple(x.shape)}, "
+                         f"q {tuple(q.shape)}, scale {tuple(scale.shape)}")
+    if in_dim % 16 or q.data_ptr() % 16:
+        raise ValueError("int8 kernel reads 16 bytes per lane: in and q's address "
+                         "must be multiples of 16")
+    if not 1 <= batch <= MAX_KERNEL_ROWS:
+        raise ValueError(f"int8 kernel takes 1..{MAX_KERNEL_ROWS} rows, got {batch}")
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    y = torch.empty((batch, out_dim), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels.library().vt_q8_matmul(
+            xb.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+            batch, out_dim, in_dim, _kernels.stream_of(x),
+        )
+    _kernels.check(err, "vt_q8_matmul")
+    q8_matmul.launches += 1
+    return y
+
+
+q8_matmul.launches = 0
+
+
+def quantized_matmul(x: torch.Tensor, qw: QuantizedWeight) -> torch.Tensor:
+    """x [B, I] . qw^T -> [B, O] f32, dispatched as the JAX package does on
+    the TPU: kernel D for 1..MAX_KERNEL_ROWS rows when O and I are
+    multiples of 128 (its tile rule); otherwise the weight is dequantized to
+    bf16 and one f32-summed matmul runs, the JAX package's XLA path."""
+    out_dim, in_dim = qw.q.shape
+    if x.shape[0] > MAX_KERNEL_ROWS or out_dim % 128 or in_dim % 128:
+        return x.to(torch.bfloat16).to(torch.float32) @ qw.dequantize().to(torch.float32).T
+    return q8_matmul(x, qw.q, qw.scale)
+
+
+def quantized_linear(x: torch.Tensor, qw: QuantizedWeight,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return _linear(x, quantized_matmul, qw, qw.q.shape[0], bias)
+
+
+def embed_rows8(table: QuantizedWeight, token_ids: torch.Tensor) -> torch.Tensor:
+    """Embedding gather from an int8 table, dequantized to bf16."""
+    return (table.q[token_ids].to(torch.float32) * table.scale[token_ids][..., None]).to(
+        torch.bfloat16)
+
+
 __all__ = [
     "MAX_KERNEL_ROWS",
+    "QuantizedWeight",
     "QuantizedWeight4",
     "QuantizedWeight4Pick",
     "embed_rows4",
+    "embed_rows8",
     "q4_matmul",
     "q4_matmul_plain",
     "q4_matmul_stacked",
+    "q8_matmul",
+    "q8_matmul_plain",
+    "quantize_weight",
     "quantize_weight4",
+    "quantized_linear",
     "quantized_linear4",
     "quantized_linear4_stacked",
+    "quantized_matmul",
     "quantized_matmul4",
     "quantized_matmul4_stacked",
     "unpack_int4",

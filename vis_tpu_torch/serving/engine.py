@@ -1,18 +1,20 @@
-"""Inference engine for the Qwen2.5-VL inspector: preprocess -> vision
-encode -> prefill -> schema-constrained lookahead decode.
+"""Inference engine: the Qwen2.5-VL inspector (preprocess -> vision encode
+-> prefill -> schema-constrained lookahead decode) and text-only decoders
+such as the Llama-3.1-8B explainer (prefill -> decode, unbatched or through
+the continuous-batching scheduler).
 
-Counterpart of the Qwen2.5-VL path of ``vis_tpu/serving/engine.py``.  The
-engine core takes its serving settings as arguments (lookahead window,
-decode windows per chunk, KV budget, prefill buckets, device preprocess);
+Counterpart of ``vis_tpu/serving/engine.py`` for these two paths.  The
+engine core takes its serving settings as arguments (``ServingSettings``);
 only ``build_engine`` and the ``EngineBackend`` adapter read
 ``vis_tpu.utils.config``.  Every tensor lives on the engine's ``device``;
 nothing picks a device on its own.
 
 Weights are random (no checkpoint loading yet): ``build_target_engine``
-materializes Qwen2.5-VL-7B at full width and depth, int4 decoder layers,
-int4 vision projections and an int4 vocab head, straight on the device
-from an explicit ``torch.Generator``; ``build_small_engine`` is the small
-profile the CPU tests drive.
+materializes Qwen2.5-VL-7B and ``build_target_text_engine`` Llama-3.1-8B
+at full width and depth, int4 decoder layers (and vision projections), an
+int4 or int8 vocab head, straight on the device from an explicit
+``torch.Generator``; ``build_small_engine`` and ``build_small_text_engine``
+are the small profiles the CPU tests drive.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from vis_tpu_torch.models.common.decoder import (
     decode_loop_lookahead,
     extend_scan,
     fuse_stacked_projections,
+    init_decoder_params,
     prefill_scan,
     quantize_stacked_params,
     stack_decoder_layers,
@@ -51,7 +54,8 @@ from vis_tpu_torch.ops.preprocess_device import (
     DeviceImagePatches,
     preprocess_image_device,
 )
-from vis_tpu_torch.ops.quantized import QuantizedWeight4
+from vis_tpu_torch.models.llama.config import llama31_8b
+from vis_tpu_torch.ops.quantized import QuantizedWeight, QuantizedWeight4
 
 logger = setup_logger(__name__, level="INFO", component="ENGINE")
 
@@ -99,6 +103,13 @@ class ServingSettings:
     lookahead: int = 8          # tokens per window (2..16)
     device_preprocess: bool = True
     min_json_tokens: int = 0    # JSON-close floor when a request names none
+    # Continuous-batching scheduler (attach_scheduler)
+    decode_batch_size: int = 8  # slots
+    paged_kv_cache: bool = False
+    kv_page_size: int = 128
+    kv_pool_tokens: int = 16384
+    scheduler_decode_chunk: int = 32
+    chunked_prefill_tokens: int = 0
 
     @classmethod
     def from_app_config(cls) -> "ServingSettings":
@@ -109,24 +120,36 @@ class ServingSettings:
             lookahead=app_config.constrained_lookahead,
             device_preprocess=app_config.device_preprocess,
             min_json_tokens=app_config.constrained_json_min_tokens,
+            decode_batch_size=app_config.decode_batch_size,
+            paged_kv_cache=app_config.paged_kv_cache,
+            kv_page_size=app_config.kv_page_size,
+            kv_pool_tokens=app_config.kv_pool_tokens,
+            scheduler_decode_chunk=app_config.scheduler_decode_chunk,
+            chunked_prefill_tokens=app_config.chunked_prefill_tokens,
         )
 
 
 class Engine:
-    """One Qwen2.5-VL model on one torch device."""
+    """One model on one torch device: a Qwen2.5-VL model (``config`` a
+    ``Qwen25VLConfig``) or a text-only decoder (a ``DecoderConfig``)."""
 
-    def __init__(self, name: str, config: Qwen25VLConfig, params: Dict[str, Any],
+    def __init__(self, name: str, config, params: Dict[str, Any],
                  tokenizer, device, settings: ServingSettings):
         self.name = name
         self.config = config
-        self.params = params  # {"vision": per-block tree, "text": stacked tree}
+        self.vlm_config = None if isinstance(config, DecoderConfig) else config
+        self.text_config = config if self.vlm_config is None else config.text
+        # {"text": stacked tree} plus, for a VLM, {"vision": per-block tree}
+        self.params = params
         self.tokenizer = tokenizer
         self.device = torch.device(device)
         self.settings = settings
         self._lock = threading.Lock()
         self._frames = DeviceFrameCache()
         self._json: Dict[Optional[str], Any] = {}
+        self.scheduler = None
         self.last_decode_tokens: Optional[int] = None
+        self.decode_tokens_total = 0
 
     def _sync(self) -> None:
         """End a span on the device's clock, not the host's enqueue."""
@@ -136,7 +159,7 @@ class Engine:
     def _json_tables(self, schema: Optional[str]):
         if schema not in self._json:
             self._json[schema] = load_constraint_tables(
-                self.tokenizer, self.config.text.vocab_size, schema, self.device
+                self.tokenizer, self.text_config.vocab_size, schema, self.device
             )
         if self._json[schema] is None and schema is not None:
             return self._json_tables(None)
@@ -157,7 +180,7 @@ class Engine:
     def encode_vision(self, image: DeviceImagePatches) -> torch.Tensor:
         """Vision tower over the bucket-padded patches -> merged embeddings
         trimmed to the image's token count."""
-        vc = self.config.vision
+        vc = self.vlm_config.vision
         padded, bucket = image.padded()
         base = window_layout(vc, image.grid_h, image.grid_w, src_len=bucket)
         wp = vc.window_patches
@@ -194,12 +217,16 @@ class Engine:
         need = bucket + max_tokens + 32
         return min(cap, ((need + 511) // 512) * 512)
 
-    def _prefill_request(self, prompt, image, *, max_tokens, max_image_dim):
-        """Vision encode + prefill into a fresh batch-1 cache sized to the
-        request; returns (cache, first_logits, next_position, ids)."""
-        tc = self.config.text
+    def _prefill_request(self, prompt, image, *, max_tokens, max_image_dim,
+                         prompt_only_cache: bool = False):
+        """Vision encode + prefill into a fresh batch-1 cache; returns (cache,
+        first_logits, next_position, kv_len, ids).  The cache is sized to the
+        request's budget, or with ``prompt_only_cache`` (a scheduler hand-off,
+        whose decode KV lives in the page pool) to the page-aligned prompt
+        bucket alone."""
+        tc = self.text_config
         patches = vision_embeds = None
-        if image is not None:
+        if image is not None and self.vlm_config is not None:
             with span("engine.preprocess", logger):
                 patches = self._preprocess(image, max_image_dim)
                 self._sync()
@@ -212,6 +239,16 @@ class Engine:
         # window-sized chunks at the cursor.
         bucket = min(_bucket_for(seq_len, self.settings.prefill_buckets),
                      cap - max_tokens - 32)
+        pool = self.scheduler.pool if prompt_only_cache and self.scheduler else None
+        if pool is not None:
+            # The pool's per-slot room (prompt + max_tokens + one decode chunk,
+            # bounded by the page-table window) can be tighter than the cache
+            # cap: truncate against it here, or the scheduler refuses the
+            # request after its prefill was paid.
+            slot_tokens = min(pool.n_pages - 1, pool.max_pages) * pool.page_size
+            paged_room = slot_tokens - max_tokens - self.scheduler.decode_chunk
+            if 2 <= paged_room < bucket:
+                bucket = paged_room
         if bucket < 2:
             raise RuntimeError(
                 f"max_tokens={max_tokens} leaves no prompt room in a "
@@ -224,13 +261,17 @@ class Engine:
             mrope_positions = None
             next_pos = seq_len
             logger.warning(f"Prompt truncated to {bucket} tokens")
-        cache_len = self._request_cache_len(bucket, max_tokens, cap)
+        if pool is not None:
+            page = max(128, pool.page_size)
+            cache_len = min(cap, -(-bucket // page) * page)
+        else:
+            cache_len = self._request_cache_len(bucket, max_tokens, cap)
 
         padded = np.zeros((1, bucket), dtype=np.int64)
         padded[0, :seq_len] = ids[0]
         padded_ids = torch.from_numpy(padded).to(self.device)
         if patches is not None:
-            embeds = embed_multimodal(self.config, self.params, padded_ids, vision_embeds)
+            embeds = embed_multimodal(self.vlm_config, self.params, padded_ids, vision_embeds)
         else:
             embeds = embed(padded_ids, self.params["text"]["embed_tokens"])
 
@@ -249,19 +290,18 @@ class Engine:
             logits, cache = prefill_scan(
                 tc, self.params["text"], embeds, positions, cache, [seq_len]
             )
-            self._sync()
-        return cache, logits, next_pos, ids
+            self._sync()  # the scheduler's hand-off relies on this synchronise
+        return cache, logits, next_pos, seq_len, ids
 
     # -- decode ----------------------------------------------------------
     def _generate_locked(self, prompt, image, *, max_tokens, temperature,
                          max_image_dim, json_schema: Optional[str],
                          json_mode: bool, min_tokens: Optional[int]) -> Iterator[str]:
-        tc = self.config.text
         params = self.params["text"]
         json_tables = self._json_tables(json_schema) if json_mode else None
         if json_tables is not None:
             max_tokens = max(max_tokens, json_tables[-1].min_budget)
-        cache, logits, next_pos, _ = self._prefill_request(
+        cache, logits, next_pos, _, _ = self._prefill_request(
             prompt, image, max_tokens=max_tokens, max_image_dim=max_image_dim
         )
         eos = self.tokenizer.eos_id
@@ -292,6 +332,7 @@ class Engine:
                 )
             self._sync()
         self.last_decode_tokens = len(generated)
+        self.decode_tokens_total += len(generated)
         final = self.tokenizer.decode(generated)
         if len(final) > len(emitted):
             yield final[len(emitted):]
@@ -302,7 +343,7 @@ class Engine:
         """Schema-constrained decode, ``lookahead`` tokens per weight pass,
         sampled (Gumbel-max from a per-request device generator) when
         temperature > 0, greedy otherwise."""
-        tc = self.config.text
+        tc = self.text_config
         ok_t, trans_t, cost_t, cls_t, tables = json_tables
         window = self.settings.lookahead
         if not (2 <= window <= 16 and tables.forced_token is not None):
@@ -365,7 +406,7 @@ class Engine:
                            emit_progress, budget) -> Iterator[str]:
         """Free-form greedy decode, one token per pass, host EOS check per
         token (the health check's path)."""
-        tc = self.config.text
+        tc = self.text_config
         for step in range(budget):
             token = torch.argmax(logits, dim=-1)
             token_id = int(token[0])
@@ -380,21 +421,103 @@ class Engine:
             )
             yield from emit_progress()
 
+    # -- continuous batching ---------------------------------------------
+    def attach_scheduler(self, num_slots: Optional[int] = None,
+                         paged: Optional[bool] = None) -> None:
+        """Batched decode: concurrent requests prefill under the engine lock,
+        then decode together in the scheduler's slots.  The scheduler gets
+        the generic JSON grammar and every registered schema, stacked as far
+        as its size budget allows (``has_table``)."""
+        from vis_tpu.serving.constrained import json_constraint_tables
+        from vis_tpu.serving.schema import SCHEMAS, schema_constraint_tables
+        from vis_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+
+        vocab = self.text_config.vocab_size
+        tables = {None: json_constraint_tables(self.tokenizer, vocab)}
+        for name in SCHEMAS:
+            tables[name] = schema_constraint_tables(self.tokenizer, vocab, name)
+        st = self.settings
+        self.scheduler = ContinuousBatchingScheduler(
+            self.text_config, self.params["text"], self.tokenizer, self.device,
+            num_slots=num_slots or st.decode_batch_size, max_len=st.max_cache_tokens,
+            paged=st.paged_kv_cache if paged is None else paged, json_tables=tables,
+            page_size=st.kv_page_size, pool_tokens=st.kv_pool_tokens,
+            decode_chunk=st.scheduler_decode_chunk,
+            chunked_prefill=st.chunked_prefill_tokens, min_json_tokens=st.min_json_tokens,
+        )
+        self.scheduler.start()
+
+    def detach_scheduler(self) -> None:
+        if self.scheduler is not None:
+            self.scheduler.stop()
+            self.scheduler = None
+
+    def _use_scheduler(self, json_mode: bool, json_schema: Optional[str],
+                       schema_batched: bool, temperature: float) -> bool:
+        """The JAX engine's routing rules for the batched path."""
+        sched = self.scheduler
+        if sched is None:
+            return False
+        if json_schema is not None and not (schema_batched and sched.has_table(json_schema)):
+            return False  # a lone schema request is faster unbatched (lookahead)
+        if json_mode and json_schema is None and not sched.has_table(None):
+            return False  # the stack holds no generic grammar
+        if temperature > 0.0 and sched._json_dev is None:
+            return False  # sampled paged decode rides the constrained loop
+        return True
+
     # -- public ------------------------------------------------------------
     def generate_stream(self, prompt, image=None, *, max_tokens: int = 1024,
                         temperature: float = 0.0, max_image_dim: int = 2048,
                         json_mode: bool = False, json_schema: Optional[str] = None,
+                        schema_batched: bool = False,
                         min_tokens: Optional[int] = None) -> Iterator[str]:
         if not json_mode:
             json_schema = None
         if json_mode and self._json_tables(json_schema) is None:
             json_mode, json_schema = False, None
+        if json_schema is not None and self._json.get(json_schema) is None:
+            json_schema = None  # the schema's tables are unavailable: generic JSON
+        if self._use_scheduler(json_mode, json_schema, schema_batched, temperature):
+            yield from self._generate_scheduled(
+                prompt, image, max_tokens=max_tokens, temperature=temperature,
+                max_image_dim=max_image_dim, json_schema=json_schema,
+                json_mode=json_mode, min_tokens=min_tokens,
+            )
+            return
         with self._lock:
             yield from self._generate_locked(
                 prompt, image, max_tokens=max_tokens, temperature=temperature,
                 max_image_dim=max_image_dim, json_schema=json_schema,
                 json_mode=json_mode, min_tokens=min_tokens,
             )
+
+    def _generate_scheduled(self, prompt, image, *, max_tokens, temperature,
+                            max_image_dim, json_schema, json_mode,
+                            min_tokens) -> Iterator[str]:
+        """Prefill under the lock, then decode in the scheduler's slots."""
+        if json_mode:
+            max_tokens = max(max_tokens, self._json_tables(json_schema)[-1].min_budget)
+        with self._lock:
+            cache, logits, next_pos, kv_len, _ = self._prefill_request(
+                prompt, image, max_tokens=max_tokens, max_image_dim=max_image_dim,
+                prompt_only_cache=True,
+            )
+        request = self.scheduler.submit_prefilled(
+            cache, logits, next_pos, max_tokens=max_tokens, kv_len=kv_len,
+            json_mode=json_mode, temperature=temperature, schema=json_schema,
+            min_tokens=min_tokens,
+        )
+        while True:
+            chunk = request.out.get()
+            if chunk is None:
+                break
+            yield chunk
+        if request.error:
+            raise RuntimeError(request.error)
+        with self._lock:  # concurrent bundle requests share these counters
+            self.last_decode_tokens = len(request.generated)
+            self.decode_tokens_total += len(request.generated)
 
     def generate(self, prompt, image=None, **kwargs) -> str:
         return "".join(self.generate_stream(prompt, image, **kwargs))
@@ -429,12 +552,11 @@ class EngineBackend:
                         temperature=0.0, max_image_dim=2048, json_mode: bool = False,
                         json_schema: Optional[str] = None, schema_batched: bool = False,
                         min_tokens: Optional[int] = None):
-        # schema_batched asks for the continuous-batching scheduler, which
-        # the port does not have yet: every request decodes unbatched.
         yield from self.engine.generate_stream(
             prompt, image_path, max_tokens=max_tokens, temperature=temperature,
             max_image_dim=max_image_dim, json_mode=json_mode,
-            json_schema=json_schema, min_tokens=min_tokens,
+            json_schema=json_schema, schema_batched=schema_batched,
+            min_tokens=min_tokens,
         )
 
     def health_check(self) -> bool:
@@ -596,6 +718,92 @@ def build_small_engine(role: str, device, seed: int, quantization: str = "none",
                   settings or ServingSettings())
 
 
+def random_q8(gen: torch.Generator, rows: int, out: int, inn: int, device) -> QuantizedWeight:
+    """A random int8 table [rows, inn] as the target profile makes it: random
+    bytes and scales N(0,1)*0.005+0.01 for the first ``out`` rows, zeros
+    (q and scale) for the padding rows past them."""
+    q = torch.zeros((rows, inn), dtype=torch.int8, device=device)
+    q[:out] = torch.randint(-128, 128, (out, inn), generator=gen, device=device,
+                            dtype=torch.int8)
+    scale = torch.zeros((rows,), dtype=torch.float32, device=device)
+    scale[:out] = _random_floats(gen, out, device=device, dtype=torch.float32)
+    return QuantizedWeight(q=q, scale=scale)
+
+
+def _random_text_params(cfg: DecoderConfig, gen: torch.Generator, device) -> Dict[str, Any]:
+    """A text decoder in its serving layout (stacked, fused; int4 layers,
+    int8 embedding and vocab head with rows padded to 512), made leaf by
+    leaf on the device like ``_random_target_params``."""
+    L, h, hd = cfg.num_layers, cfg.hidden_size, cfg.head_dim_
+    qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+    rows = -(-cfg.vocab_size // 512) * 512
+
+    def q4(*lead, out, inn):
+        return random_q4(gen, *lead, out=out, inn=inn, device=device)
+
+    def floats(*shape):
+        return _random_floats(gen, *shape, device=device)
+
+    return {
+        "embed_tokens": random_q8(gen, rows, cfg.vocab_size, h, device),
+        "lm_head": random_q8(gen, rows, cfg.vocab_size, h, device),
+        "final_norm": floats(h),
+        "layers_stacked": {
+            "input_norm": floats(L, h), "post_attn_norm": floats(L, h),
+            "qkv_proj": q4(L, out=qkv_out, inn=h),
+            "o_proj": q4(L, out=h, inn=cfg.num_heads * hd),
+            "mlp": {
+                "gateup_proj": q4(L, out=2 * cfg.intermediate_size, inn=h),
+                "down_proj": q4(L, out=h, inn=cfg.intermediate_size),
+            },
+        },
+    }
+
+
+def build_target_text_engine(role: str, device, seed: int,
+                             settings: Optional[ServingSettings] = None) -> Engine:
+    """Llama-3.1-8B at full width and depth: random int4 layers, int8
+    embedding and vocab head (128256 rows padded to 128512)."""
+    device = torch.device(device)
+    cfg = llama31_8b()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = {"text": _random_text_params(cfg, gen, device)}
+    logger.info(f"{role}: target-scale Llama-3.1-8B (int4, int8 head, random) on {device}")
+    return Engine(f"target-{role}-llama31-8b", cfg, params,
+                  ByteTokenizer(vocab_size=cfg.vocab_size), device,
+                  settings or ServingSettings())
+
+
+def small_text_config() -> DecoderConfig:
+    """The JAX package's small text dev profile (``_dev_text_config``)."""
+    return DecoderConfig(
+        vocab_size=1024, hidden_size=1024, num_layers=8, num_heads=8,
+        num_kv_heads=2, intermediate_size=2816, rope_theta=500000.0,
+        qkv_bias=False, tie_word_embeddings=True,
+    )
+
+
+def build_small_text_engine(role: str, device, seed: int, quantization: str = "none",
+                            vocab_mode: str = "int4", config: Optional[DecoderConfig] = None,
+                            settings: Optional[ServingSettings] = None) -> Engine:
+    """The small text profile (or ``config``): random-normal weights, layers
+    stacked and fused, int4 layers and an int4/int8 vocab head when
+    ``quantization == "int4"``."""
+    device = torch.device(device)
+    cfg = config or small_text_config()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    text = fuse_stacked_projections(stack_decoder_layers(init_decoder_params(cfg, gen, device)))
+    if quantization == "int4":
+        text = quantize_stacked_params(text, quantize_embeddings=True, vocab_mode=vocab_mode)
+    elif quantization != "none":
+        raise NotImplementedError(f"QUANTIZATION={quantization} is not ported yet")
+    return Engine(f"dev-{role}", cfg, {"text": text},
+                  ByteTokenizer(vocab_size=cfg.vocab_size), device,
+                  settings or ServingSettings())
+
+
 def _is_qwen25(model_name: str) -> bool:
     lower = model_name.lower()
     return "qwen2.5-vl" in lower or "qwen2_5_vl" in lower or "qwen2.5vl" in lower
@@ -608,20 +816,48 @@ def _vocab_mode(role: str) -> str:
 
 
 def build_engine(role: str, model_name: str, device, seed: int = 0) -> Engine:
-    """An engine for a role from the app config (weightless profiles only)."""
+    """An engine for a role from the app config (weightless profiles only):
+    the inspector and auditor are VLMs, every other role a text model, as
+    in the JAX package.  Settings that would change the reference's numbers
+    and are not ported raise instead of being ignored."""
+    if app_config.kv_quantization == "int8":
+        raise NotImplementedError(
+            "KV_QUANTIZATION=int8 is not ported: the port stores bf16 KV where "
+            "the reference would store int8, so it refuses the setting"
+        )
+    if app_config.quantization not in ("none", "int4"):
+        raise NotImplementedError(f"QUANTIZATION={app_config.quantization} is not ported yet")
+    settings = ServingSettings.from_app_config()
+    target = app_config.dev_profile == "target"
+    vocab_mode = _vocab_mode(role)
+    if role not in ("inspector", "auditor"):
+        if not target:
+            return build_small_text_engine(role, device, seed, app_config.quantization,
+                                           vocab_mode, settings=settings)
+        if app_config.quantization != "int4" or vocab_mode != "int8":
+            raise NotImplementedError(
+                "the target text profile is ported for int4 layers and an int8 vocab head")
+        return build_target_text_engine(role, device, seed, settings)
     if not _is_qwen25(model_name):
         raise NotImplementedError(
-            f"the port serves Qwen2.5-VL only so far, not {model_name!r} ({role})"
+            f"the port serves Qwen2.5-VL only among VLMs so far, not {model_name!r} ({role})"
         )
-    settings = ServingSettings.from_app_config()
-    if app_config.dev_profile == "target":
-        if app_config.quantization != "int4" or _vocab_mode(role) != "int4":
+    if target:
+        if app_config.quantization != "int4" or vocab_mode != "int4":
             raise NotImplementedError(
                 "the target profile is ported for int4 layers and an int4 vocab head"
             )
         return build_target_engine(role, device, seed, settings)
     return build_small_engine(role, device, seed, app_config.quantization,
-                              _vocab_mode(role), settings)
+                              vocab_mode, settings)
+
+
+def _maybe_attach_scheduler(role: str, engine: Engine) -> None:
+    """CONTINUOUS_BATCHING=true attaches a scheduler to the engines of the
+    roles in BATCHING_ROLES ("all" = every engine)."""
+    roles = {r.strip() for r in app_config.batching_roles.split(",") if r}
+    if app_config.continuous_batching and ("all" in roles or role in roles):
+        engine.attach_scheduler()
 
 
 _engines: Dict[tuple, Engine] = {}
@@ -633,7 +869,9 @@ def get_engine_backend(role: str, model_name: str, device, seed: int = 0) -> Eng
     key = (role, model_name, str(torch.device(device)), seed)
     with _engine_lock:
         if key not in _engines:
-            _engines[key] = build_engine(role, model_name, device, seed)
+            engine = build_engine(role, model_name, device, seed)
+            _maybe_attach_scheduler(role, engine)
+            _engines[key] = engine
         return EngineBackend(_engines[key])
 
 
@@ -643,7 +881,9 @@ __all__ = [
     "ServingSettings",
     "build_engine",
     "build_small_engine",
+    "build_small_text_engine",
     "build_target_engine",
+    "build_target_text_engine",
     "get_engine_backend",
     "load_constraint_tables",
 ]
