@@ -8,22 +8,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    which host packages the pipeline needs are installed;
 2. build: compile the port's CUDA kernels from vis_tpu_torch/csrc (one
    nvcc per source, all at once);
-3. kernels: each kernel (A, B, C, D) against its plain PyTorch version at
-   the shapes the main path gives it, with the tolerance stated, and both
-   timed;
+3. kernels: each kernel (A, B, C, D, E) against its plain PyTorch version
+   at the shapes the main paths give it, with the tolerance stated, and
+   both timed, beside the least time the card could take (bound) and, for
+   C, PyTorch's scaled_dot_product_attention on the same inputs;
 4. reference: the small Qwen2.5-VL profile and the small Llama text
-   profile on the card against the same engines on the CPU (prefill
-   logits, a lookahead window, one batched paged decode chunk);
-5. slice: run_inspection on assets/sample.jpg, three requests, with the
-   Qwen2.5-VL-7B inspector and the Llama-3.1-8B explainer on the port (full
-   width and depth, random weights from a fixed seed; the explainer's
-   report bundle through the paged continuous-batching scheduler) and the
-   auditor on the mock provider.  Every kernel must have launched during
-   these requests, and every request must show the explainer's three
-   decodes as model text from the scheduler.
+   profile, int4 and int8, on the card against the same engines on the CPU
+   (prefill logits, a lookahead window, one batched paged decode chunk);
+5. int4 slice: vis_tpu_torch.orchestration.graph.run_inspection on
+   assets/sample.jpg, three requests, with the Qwen2.5-VL-7B inspector and
+   the Llama-3.1-8B explainer on the port (full width and depth, random
+   int4 weights from a fixed seed; the explainer's report bundle through
+   the paged continuous-batching scheduler) and the auditor on the mock
+   provider.  Kernels A-D must have launched during these requests, and
+   every request must show the explainer's three decodes as model text
+   from the scheduler;
+6. int8 slice: the same three requests under QUANTIZATION=int8 (int8
+   layers, vocab tables and vision projections).  Kernels C, D and E must
+   have launched.
 
-The last line of standard output is {"ok": true, "device": {...}}; the
-line before it lists each kernel's launches, error and times.
+Neither jax nor the JAX package (vis_tpu) can be imported here: the port
+stands alone.  The last line of standard output is {"ok": true, "device":
+{...}}; the line before it lists each kernel's launches, error, times and
+bound.
 """
 
 from __future__ import annotations
@@ -37,9 +44,11 @@ import sys
 import time
 from pathlib import Path
 
-HOST_PACKAGES = ("pydantic", "PIL", "yaml", "jax")
+HOST_PACKAGES = ("pydantic", "PIL", "yaml")
 INSTALLED = {name: importlib.util.find_spec(name) is not None for name in HOST_PACKAGES}
-sys.modules["jax"] = None  # the port never imports jax; make sure nothing does
+# The port imports neither jax nor the JAX package; make sure nothing does.
+sys.modules["jax"] = None
+sys.modules["vis_tpu"] = None
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -53,6 +62,7 @@ SAMPLE = REPO / "assets" / "sample.jpg"
 # environment), with the inspector and the explainer on the port and the
 # auditor mocked.
 PROFILE = {
+    "TORCH_DEVICE": DEVICE,
     "DEV_PROFILE": "target",
     "QUANTIZATION": "int4",
     "VOCAB_QUANTIZATION": "int4",
@@ -89,6 +99,12 @@ PROFILE = {
     "REPORT_DIR": str(WORK / "reports"),
     "LOG_DIR": str(WORK / "logs"),
 }
+# The int8 slice: the same profile under QUANTIZATION=int8 with the
+# config's own vocab default (VOCAB_QUANTIZATION=same, no per-role
+# override): int8 layers, vocab tables and vision projections.
+INT8_PROFILE = {**PROFILE, "QUANTIZATION": "int8", "VOCAB_QUANTIZATION": "same",
+                "INSPECTOR_VOCAB_QUANTIZATION": "", "AUDITOR_VOCAB_QUANTIZATION": "",
+                "EXPLAINER_VOCAB_QUANTIZATION": ""}
 
 # 7B decoder projections, [out, in], and the padded int4 vocab head.
 PROJECTIONS = {
@@ -102,6 +118,18 @@ HEAD = (152064, 3584)
 FLASH = dict(b=1, s=4096, h=16, d=80, length=3996)
 # The explainer's int8 vocab head: Llama-3.1-8B's 128256 rows padded to 128512.
 HEAD8 = (128512, 128256, 4096)
+# Kernel E's shapes: (hidden, inter, stacked layers, batch rows); Qwen's
+# decode windows run 8 rows, Llama's scheduler 3 slots.
+MLP8 = {"qwen": (3584, 18944, 28, (1, 8)), "llama": (4096, 14336, 8, (1, 3))}
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and bf16 FLOP/s.
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """The least time (ms) the card could take for this work, and what
+    bounds it: the bytes over HBM's rate or the operations over bf16's."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def median_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -193,8 +221,12 @@ def phase_kernels() -> dict:
             print(f"[A] {name:8s} B={rows}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of "
                   f"weight), plain {plain:.4f} ms")
         del w, q, scale
+    out, inn = PROJECTIONS["gate_up"]
+    bound_a = bound(out * inn // 2 + out * 2 * 4 + 8 * inn * 2 + 8 * out * 4, 2 * 8 * out * inn)
+    print(f"[A] gate_up B=8 bound {bound_a[0]:.4f} ms ({bound_a[1]})")
     report["A"] = dict(err=worst_a, ms=times_a[("gate_up", 8)][0],
-                       plain_ms=times_a[("gate_up", 8)][1], table=times_a)
+                       plain_ms=times_a[("gate_up", 8)][1], bound=bound_a, library_ms=None,
+                       table=times_a)
 
     # B: the int4 vocab head, B = 1.
     w = random_q4(gen, out=HEAD[0], inn=HEAD[1], device=dev)
@@ -211,8 +243,11 @@ def phase_kernels() -> dict:
     ms = median_ms(lambda i: qz.q4_matmul(x, q, scale), reps=30)
     plain = median_ms(lambda i: qz.q4_matmul_plain(x, q, scale), reps=10)
     gbps = (q.numel() + scale.numel() * 4) / (ms * 1e-3) / 1e9
-    print(f"[B] head B=1: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), plain {plain:.4f} ms")
-    report["B"] = dict(err=err, ms=ms, plain_ms=plain)
+    bound_b = bound(q.numel() + scale.numel() * 4 + HEAD[1] * 2 + HEAD[0] * 4,
+                    2 * HEAD[0] * HEAD[1])
+    print(f"[B] head B=1: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), plain {plain:.4f} ms, "
+          f"bound {bound_b[0]:.4f} ms ({bound_b[1]})")
+    report["B"] = dict(err=err, ms=ms, plain_ms=plain, bound=bound_b, library_ms=None)
     del w, q, scale
 
     # C: the vision tower's full-attention shape, non-causal, then causal.
@@ -254,12 +289,28 @@ def phase_kernels() -> dict:
         ms = median_ms(lambda i: fa.flash_attention(*qkv, lengths, causal=causal), reps=20)
         plain = median_ms(lambda i: fa.flash_attention_reference(
             *qkv, lengths, causal=causal), reps=10)
-        flops = 4 * n * n * d * h * b * (0.5 if causal else 1.0)
+        # Operations on the valid keys: every query row attends the n
+        # valid keys (the causal case about half of them).
+        flops = 4 * s * n * d * h * b * (0.5 if causal else 1.0)
+        bound_c = bound(4 * b * s * h * d * 2 + 4, flops)
         print(f"[C] causal={causal}: kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
-              f"TFLOP/s on valid keys), plain {plain:.4f} ms")
-        times_c[causal] = (ms, plain)
-    report["C"] = dict(err=worst_c, ms=times_c[False][0], plain_ms=times_c[False][1])
-    del qkv
+              f"TFLOP/s on valid keys), plain {plain:.4f} ms, bound {bound_c[0]:.4f} ms "
+              f"({bound_c[1]})")
+        times_c[causal] = (ms, plain, bound_c)
+    # The yardstick, timed here only: PyTorch's fused attention on the same
+    # inputs and key mask (non-causal), in [b, h, s, d].
+    q_t, k_t, v_t = (a.transpose(1, 2) for a in qkv)
+    keep = (torch.arange(s, device=dev) < n)[None, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_err = (sdpa(q_t, k_t, v_t, attn_mask=keep).transpose(1, 2).float()
+               - fa.flash_attention_reference(*qkv, lengths, causal=False).float()
+               ).abs().max().item()
+    library = median_ms(lambda i: sdpa(q_t, k_t, v_t, attn_mask=keep), reps=20)
+    print(f"[C] library scaled_dot_product_attention (non-causal, key mask): {library:.4f} ms "
+          f"(max|err| vs plain {lib_err:.3e})")
+    report["C"] = dict(err=worst_c, ms=times_c[False][0], plain_ms=times_c[False][1],
+                       bound=times_c[False][2], library_ms=library)
+    del qkv, q_t, k_t, v_t
 
     # D: the int8 vocab head at B = 1 (end of prefill) and B = 3 (batched
     # decode).  Only the order of the f32 sums differs from the plain
@@ -289,9 +340,75 @@ def phase_kernels() -> dict:
         print(f"[D] head B={batch}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), "
               f"plain {plain:.4f} ms")
         times_d[batch] = (ms, plain)
-    report["D"] = dict(err=worst_d, ms=times_d[3][0], plain_ms=times_d[3][1])
+    bound_d = bound(w.q.numel() + w.scale.numel() * 4 + 3 * inn * 2 + 3 * rows * 4,
+                    2 * 3 * rows * inn)
+    print(f"[D] head B=3 bound {bound_d[0]:.4f} ms ({bound_d[1]})")
+    report["D"] = dict(err=worst_d, ms=times_d[3][0], plain_ms=times_d[3][1], bound=bound_d,
+                       library_ms=None)
     del w
+    report["E"] = _kernel_e(gen, dev)
     return report
+
+
+def _kernel_e(gen, dev) -> dict:
+    """E, the fused int8 SwiGLU MLP, at the Qwen shape (28 stacked layers,
+    layers 0 and 27, B = 1 and 8) and the Llama shape (8 stacked layers,
+    B = 1 and 3).  The output is bf16 and h is rounded to bf16 inside, so
+    a sum taken in another order can move an element of h, or of y, by one
+    bf16 step: max|err| <= 2^-7 * max|y|.  The same kernel with gate and
+    up swapped must miss by more, which shows the bound catches a wrong
+    kernel.  Timing walks the stack, so each launch reads its weights from
+    device memory, as a decode step does."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.serving.engine import random_q8_stack
+
+    tol_e = 2.0 ** -7
+    table, worst = {}, 0.0
+    for model, (hidden, inter, layers, batches) in MLP8.items():
+        gateup = random_q8_stack(gen, layers, out=2 * inter, inn=hidden, device=dev)
+        down = random_q8_stack(gen, layers, out=hidden, inn=inter, device=dev)
+
+        def pick(i):
+            i %= layers
+            return (qz.QuantizedWeight(gateup.q[i], gateup.scale[i]),
+                    qz.QuantizedWeight(down.q[i], down.scale[i]))
+
+        for rows in batches:
+            x = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+            for idx in (0, layers - 1):
+                gu, dn = pick(idx)
+                got = qz.fused_swiglu_mlp(x, gu, dn)
+                want = qz.fused_swiglu_mlp_plain(x, gu.q, gu.scale, dn.q, dn.scale)
+                swapped = qz.fused_swiglu_mlp(x, qz.QuantizedWeight(
+                    torch.cat([gu.q[inter:], gu.q[:inter]]),
+                    torch.cat([gu.scale[inter:], gu.scale[:inter]])), dn)
+                torch.cuda.synchronize()
+                scale = want.float().abs().max().item()
+                err = (got.float() - want.float()).abs().max().item()
+                miss = (swapped.float() - want.float()).abs().max().item()
+                finite = bool(torch.isfinite(got).all())
+                print(f"[E] {model} H={hidden} I={inter} B={rows} idx={idx:2d}: max|err| "
+                      f"{err:.3e} <= tol {tol_e * scale:.3e}; gate/up swapped {miss:.3e} > tol")
+                if not (finite and err <= tol_e * scale):
+                    raise AssertionError(f"kernel E {model} B={rows} idx={idx}: {err} > "
+                                         f"{tol_e * scale} or non-finite")
+                if not miss > tol_e * scale:
+                    raise AssertionError(f"kernel E check misses swapped gate/up: {miss}")
+                worst = max(worst, err)
+            ms = median_ms(lambda i: qz.fused_swiglu_mlp(x, *pick(i)), reps=2 * layers)
+            plain = median_ms(lambda i: qz.fused_swiglu_mlp_plain(
+                x, *(a for w in pick(i) for a in (w.q, w.scale))), reps=layers)
+            weight = 3 * hidden * inter + 2 * inter * 4 + hidden * 4
+            limit = bound(weight + 2 * rows * hidden * 2, 6 * rows * hidden * inter)
+            print(f"[E] {model} B={rows}: kernel {ms:.4f} ms ({weight / (ms * 1e-3) / 1e9:.0f} "
+                  f"GB/s of weight), plain {plain:.4f} ms, bound {limit[0]:.4f} ms ({limit[1]})")
+            table[(model, rows)] = (ms, plain, limit)
+        del gateup, down
+        torch.cuda.empty_cache()
+    ms, plain, limit = table[("qwen", 8)]
+    return dict(err=worst, ms=ms, plain_ms=plain, bound=limit, library_ms=None, table=table)
 
 
 def _to_device(tree, device):
@@ -309,16 +426,18 @@ def _to_device(tree, device):
     return dataclasses.replace(tree, q=tree.q.to(device), scale=tree.scale.to(device))
 
 
-def phase_reference() -> dict:
+def phase_reference(quantization: str) -> dict:
     """The engine on the card against the same engine on the CPU, where every
     wrapper runs its plain version: the small Qwen2.5-VL profile (8 layers,
-    int4 layers and vocab head) with the same weights on both.  Prefill runs
-    the vision tower through kernel C (1024 patches) and the vocab head
-    through kernel B; one 8-token window then runs every projection through
-    kernel A.  Both sides work in bf16 with f32 sums, so a sum taken in
-    another order can flip a bf16 rounding that the next layers carry on:
-    logits are held to max|err| <= 2^-5 * max|ref|, which a wrong kernel
-    (wrong layer, nibble or mask) exceeds by far."""
+    text layers and vocab table int4 or int8 by ``quantization``) with the
+    same weights on both.  Prefill runs the vision tower through kernel C
+    (1024 patches) and the vocab head through kernel B (int4) or D (int8);
+    one 8-token window then runs every projection through kernel A (int4),
+    or qkv and o through D and each MLP through E (int8).  Both sides work
+    in bf16 with f32 sums, so a sum taken in another order can flip a bf16
+    rounding that the next layers carry on: logits are held to max|err| <=
+    2^-5 * max|ref|, which a wrong kernel (wrong layer, nibble or mask)
+    exceeds by far."""
     import torch
 
     from vis_tpu_torch.models.common.decoder import extend_scan
@@ -326,8 +445,8 @@ def phase_reference() -> dict:
     from vis_tpu_torch.serving import engine as E
 
     settings = E.ServingSettings(max_cache_tokens=2048, lookahead=8)
-    cpu = E.build_small_engine("reference", "cpu", SEED, quantization="int4",
-                               settings=settings)
+    cpu = E.build_small_engine("reference", "cpu", SEED, quantization=quantization,
+                               vocab_mode=quantization, settings=settings)
     worst = 0.0
     gpu = E.Engine(cpu.name, cpu.config, _to_device(cpu.params, DEVICE),
                    cpu.tokenizer, DEVICE, settings)
@@ -344,9 +463,9 @@ def phase_reference() -> dict:
             pos[None, None].expand(3, 1, n), cache, [n])
         out[label] = {"prefill": logits.cpu(), "window": last.cpu()}
     for name in ("prefill", "window"):
-        worst = max(worst, _hold("small Qwen2.5-VL", name, out["plain"][name],
+        worst = max(worst, _hold(f"small Qwen2.5-VL {quantization}", name, out["plain"][name],
                                  out["kernel"][name]))
-    worst = max(worst, _reference_text())
+    worst = max(worst, _reference_text(quantization))
     return {"worst_err_over_tol": worst}
 
 
@@ -368,23 +487,25 @@ def _hold(profile: str, name: str, want, got, argmax: bool = False) -> float:
     return err / tol
 
 
-def _reference_text() -> float:
-    """The small Llama text profile (8 layers, int4 layers, int8 embedding and
-    head) on the card against the CPU, same weights: the prefill logits of
-    three prompts, then one batched paged decode chunk of 4 steps over 3
-    scheduler slots (free-form, generic JSON, decision_support), driven on
-    this thread: the chunk's tokens must be equal and its last logits held
-    to the same bound with the argmax equal.  The prefill's head runs kernel
-    D at B=1, the chunk runs kernel A and kernel D at B=3."""
+def _reference_text(quantization: str) -> float:
+    """The small Llama text profile (8 layers, int4 or int8 layers, int8
+    embedding and head) on the card against the CPU, same weights: the
+    prefill logits of three prompts, then one batched paged decode chunk of
+    4 steps over 3 scheduler slots (free-form, generic JSON,
+    decision_support), driven on this thread: the chunk's tokens must be
+    equal and its last logits held to the same bound with the argmax equal.
+    The prefill's head runs kernel D at B=1 (and at int8 each MLP kernel E),
+    the chunk runs kernel A (int4) or D and E (int8) at B=3, and D for the
+    head."""
     import torch
 
-    from vis_tpu.serving.constrained import json_constraint_tables
-    from vis_tpu.serving.schema import SCHEMAS, schema_constraint_tables
     from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving.constrained import json_constraint_tables
     from vis_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    from vis_tpu_torch.serving.schema import SCHEMAS, schema_constraint_tables
 
     settings = E.ServingSettings(max_cache_tokens=1024, lookahead=8)
-    cpu = E.build_small_text_engine("reference", "cpu", SEED, "int4", "int8",
+    cpu = E.build_small_text_engine("reference", "cpu", SEED, quantization, "int8",
                                     settings=settings)
     gpu = E.Engine(cpu.name, cpu.config, _to_device(cpu.params, DEVICE), cpu.tokenizer,
                    DEVICE, settings)
@@ -418,9 +539,10 @@ def _reference_text() -> float:
     if out["kernel"]["tokens"] != out["plain"]["tokens"]:
         raise AssertionError(f"reference text chunk tokens differ: {out['kernel']['tokens']} "
                              f"!= {out['plain']['tokens']}")
-    print(f"[reference] small Llama text chunk tokens equal: {out['plain']['tokens']}")
-    return max(_hold("small Llama text", name, out["plain"][name], out["kernel"][name],
-                     argmax=True) for name in ("prefill", "chunk"))
+    print(f"[reference] small Llama text {quantization} chunk tokens equal: "
+          f"{out['plain']['tokens']}")
+    return max(_hold(f"small Llama text {quantization}", name, out["plain"][name],
+                     out["kernel"][name], argmax=True) for name in ("prefill", "chunk"))
 
 
 class _Recorder:
@@ -515,28 +637,35 @@ def _check_bundle(i: int, calls, requests, scheduler, decision_keys) -> dict:
     return sorted((r.max_tokens, len(r.generated)) for r in requests)
 
 
-def phase_slice() -> dict:
+def phase_slice(label: str, profile: dict, required: str) -> dict:
+    """Three run_inspection requests through the port's own entry point
+    under ``profile``; fails unless every kernel in ``required`` launched
+    during them.  Returns each kernel's launches, counted from 0 just
+    before the first request."""
     import torch
 
-    from vis_tpu.agents import get_explainer, get_inspector
-    from vis_tpu.orchestration.graph import run_inspection
-    from vis_tpu.serving.schema import SCHEMAS
-    from vis_tpu.utils.logger import get_timings
-    from vis_tpu_torch import agents as port_agents
+    from vis_tpu_torch import agents
     from vis_tpu_torch.ops import flash_attention as fa
     from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.orchestration.graph import run_inspection
+    from vis_tpu_torch.serving.schema import SCHEMAS
+    from vis_tpu_torch.utils.config import get_config
+    from vis_tpu_torch.utils.logger import get_timings
 
+    for key, value in profile.items():
+        os.environ[key] = value
+    get_config(reload=True)
     keys = [k for k, _ in SCHEMAS["inspection"].props]
     decision_keys = [k for k, _ in SCHEMAS["decision_support"].props]
-    port_agents.install(DEVICE, seed=SEED)
-    for name, get in (("inspector", get_inspector), ("explainer", get_explainer)):
+    agents.install(DEVICE, seed=SEED)
+    for name, get in (("inspector", agents.get_inspector), ("explainer", agents.get_explainer)):
         start = time.perf_counter()
         agent = get()
         torch.cuda.synchronize()
-        print(f"[slice] built {agent.backend.engine.name} on {DEVICE} (seed {SEED}) in "
+        print(f"[{label}] built {agent.backend.engine.name} on {DEVICE} (seed {SEED}) in "
               f"{time.perf_counter() - start:.2f} s; device memory "
               f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    inspector, explainer = get_inspector(), get_explainer()
+    inspector, explainer = agents.get_inspector(), agents.get_explainer()
     recorder = _Recorder(inspector.backend)
     inspector.backend = recorder
     engine = inspector.backend.backend.engine
@@ -547,7 +676,7 @@ def phase_slice() -> dict:
     explainer.backend = bundle
 
     wrappers = {"A": qz.q4_matmul_stacked, "B": qz.q4_matmul, "C": fa.flash_attention,
-                "D": qz.q8_matmul}
+                "D": qz.q8_matmul, "E": qz.fused_swiglu_mlp}
     for fn in wrappers.values():
         fn.launches = 0
     for i in range(REQUESTS):
@@ -561,30 +690,62 @@ def phase_slice() -> dict:
         wall = time.perf_counter() - start
         result = state["inspector_result"]
         if result["analysis_failed"]:
-            raise AssertionError(f"request {i}: inspector failed: {result['failure_reason']}")
+            raise AssertionError(f"{label} request {i}: inspector failed: "
+                                 f"{result['failure_reason']}")
         doc = json.loads(recorder.outputs[-1])
         if list(doc) != keys:
-            raise AssertionError(f"request {i}: inspector keys {list(doc)} != {keys}")
+            raise AssertionError(f"{label} request {i}: inspector keys {list(doc)} != {keys}")
         calls, requests = bundle.take()
         tokens = _check_bundle(i, calls, requests, scheduler, decision_keys)
         if scheduler.stats["admitted"] - admitted != 3:
-            raise AssertionError(f"request {i}: scheduler admitted "
+            raise AssertionError(f"{label} request {i}: scheduler admitted "
                                  f"{scheduler.stats['admitted'] - admitted}, not 3")
         spans = {k: round(sum(v), 4) for k, v in get_timings().items()
                  if k.startswith(("engine.", "scheduler.", "explainer"))}
         steps = scheduler.stats["steps"] - steps
         verdict = (state.get("safety_verdict") or {}).get("verdict")
-        print(f"[slice] request {i}: wall {wall:.3f} s, spans {spans}, inspector decode "
+        print(f"[{label}] request {i}: wall {wall:.3f} s, spans {spans}, inspector decode "
               f"tokens {engine.last_decode_tokens}, explainer (budget, tokens) {tokens}, "
               f"scheduler steps {steps} "
               f"({1e3 * spans.get('scheduler.decode', 0.0) / max(steps, 1):.2f} ms a step), "
               f"most live slots {scheduler.stats['max_live']}, verdict {verdict}")
     launches = {k: fn.launches for k, fn in wrappers.items()}
-    print(f"[slice] kernel launches during the {REQUESTS} requests: {launches}")
-    for k, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
+    print(f"[{label}] kernel launches during the {REQUESTS} requests: {launches}")
+    for k in required:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the {label} path")
     return launches
+
+
+def _release_engines() -> None:
+    """Stop the schedulers and drop the engines (the recorders hold them in
+    reference cycles, hence the collection), so that the next slice's
+    weights have the card to themselves."""
+    import gc
+
+    import torch
+
+    from vis_tpu_torch import agents
+    from vis_tpu_torch.serving import engine as E
+
+    for eng in E._engines.values():
+        eng.detach_scheduler()
+    E._engines.clear()
+    agents.reset_agent_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+KERNELS = {  # key: (wrapper, source, the TPU kernel it replaces)
+    "A": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
+          "vis_tpu/ops/quantized.py:453"),
+    "B": ("q4_matmul", "vis_tpu_torch/csrc/q4_matmul.cu", "vis_tpu/ops/quantized.py:337"),
+    "C": ("flash_attention", "vis_tpu_torch/csrc/flash_attention.cu",
+          "vis_tpu/ops/flash_attention.py:41"),
+    "D": ("q8_matmul", "vis_tpu_torch/csrc/q8_matmul.cu", "vis_tpu/ops/quantized.py:74"),
+    "E": ("fused_swiglu_mlp", "vis_tpu_torch/csrc/q8_swiglu.cu",
+          "vis_tpu/ops/quantized.py:164"),
+}
 
 
 def main() -> int:
@@ -598,23 +759,19 @@ def main() -> int:
 
     phase_build()
     kernels = phase_kernels()
-    phase_reference()
-    launches = phase_slice()
-    meta = {
-        "A": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
-              "vis_tpu/ops/quantized.py:453"),
-        "B": ("q4_matmul", "vis_tpu_torch/csrc/q4_matmul.cu",
-              "vis_tpu/ops/quantized.py:337"),
-        "C": ("flash_attention", "vis_tpu_torch/csrc/flash_attention.cu",
-              "vis_tpu/ops/flash_attention.py:41"),
-        "D": ("q8_matmul", "vis_tpu_torch/csrc/q8_matmul.cu",
-              "vis_tpu/ops/quantized.py:74"),
-    }
+    for quantization in ("int4", "int8"):
+        phase_reference(quantization)
+    int4 = phase_slice("int4 slice", PROFILE, "ABCD")
+    _release_engines()
+    int8 = phase_slice("int8 slice", INT8_PROFILE, "CDE")
+    _release_engines()
     rows = [
-        {"name": meta[k][0], "route": "cuda", "source": meta[k][1], "replaces": meta[k][2],
-         "launches": launches[k], "max_abs_err": kernels[k]["err"],
-         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"]}
-        for k in ("A", "B", "C", "D")
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": int4[k] + int8[k], "max_abs_err": kernels[k]["err"],
+         "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
+         "bound_ms": kernels[k]["bound"][0], "bound_by": kernels[k]["bound"][1],
+         "library_ms": kernels[k]["library_ms"]}
+        for k, (name, source, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

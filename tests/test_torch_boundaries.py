@@ -1,6 +1,7 @@
-"""Boundaries of the PyTorch port: it never imports jax, its kernel modules
-call no library attention or compiler, and each kernel wrapper, handed CPU
-tensors, runs its plain version and launches nothing."""
+"""Boundaries of the PyTorch port: it never imports jax nor the JAX package
+(vis_tpu), its kernel modules call no library attention or compiler, and
+each kernel wrapper, handed CPU tensors, runs its plain version and
+launches nothing."""
 
 import ast
 import json
@@ -12,10 +13,14 @@ from torch_port import run_port
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "vis_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+# Every file of the port, and the scripts that drive it with vis_tpu blocked.
+STANDALONE_FILES = PORT_FILES + [REPO / "tools" / "profile_port_decode.py",
+                                 REPO / "tests" / "torch_port_runner.py"]
 KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n for n in ("quantized.py", "flash_attention.py")]
 FORBIDDEN_CALLS = {"scaled_dot_product_attention", "compile", "multi_head_attention_forward",
                    "_scaled_dot_product_flash_attention", "_scaled_dot_product_efficient_attention"}
-WRAPPERS = ("q4_matmul", "q4_matmul_stacked", "flash_attention", "q8_matmul")
+WRAPPERS = ("q4_matmul", "q4_matmul_stacked", "flash_attention", "q8_matmul",
+            "fused_swiglu_mlp")
 
 
 def _imports(path):
@@ -29,6 +34,12 @@ def _imports(path):
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
 def test_port_never_imports_jax(path):
     bad = [m for m in _imports(path) if m == "jax" or m.startswith("jax.")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize("path", STANDALONE_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_never_imports_the_jax_package(path):
+    bad = [m for m in _imports(path) if m == "vis_tpu" or m.startswith("vis_tpu.")]
     assert not bad, f"{path.name} imports {bad}"
 
 

@@ -7,7 +7,11 @@ NVIDIA GPU and nvcc, and skip elsewhere:
 
 Tolerances: the int4 and int8 kernels differ from their plain version
 only in the order of the f32 sums, max|err| <= 1e-4 * max|y|, and int8
-rows padded with zeros (scale 0) give exactly 0; flash attention reads and
+rows padded with zeros (scale 0) give exactly 0; the fused int8 MLP (E)
+returns bf16 and rounds h to bf16 inside, so a sum in another order can
+move an element of h or of y by one bf16 step: max|err| <= 2^-7 * max|y|,
+which the same kernel with gate and up swapped must exceed, and two runs
+must agree bit for bit (no atomics); flash attention reads and
 writes bf16 (unit-normal inputs) and rounds its probabilities before the
 P.V product; all query rows are compared, to max|err| <= 2e-2 and each
 output row to max|err| <= 2^-6 * max|ref| over that row, as chip_smoke.py
@@ -37,6 +41,13 @@ Q8_CASES = {  # name: (rows, out, in, zero-padded rows at the end)
     "128x40x16": (128, 40, 16, 3),
     "5x33x4112": (5, 33, 4112, 1),
 }
+E_CASES = {  # name: (rows, hidden, inter)
+    "1x256x384": (1, 256, 384),
+    "3x512x208": (3, 512, 208),       # inter not a multiple of the 16-column block
+    "8x2064x512": (8, 2064, 512),     # two x stages, a 16-column last stage
+    "9x1024x2816": (9, 1024, 2816),   # two batch passes; the small profile's MLP
+    "128x256x128": (128, 256, 128),
+}
 FLASH_CASES = {  # name: (head_dim, causal, per-batch lengths or None); b=2, s=256, h=3
     f"d{d}-{'causal' if causal else 'full'}-{'all' if lens is None else 'ragged'}":
         (d, causal, lens)
@@ -48,6 +59,7 @@ FLASH_CASES = {  # name: (head_dim, causal, per-batch lengths or None); b=2, s=2
 def card(tmp_path_factory):
     out = run_port("cuda_kernels", {"q4_cases": np.array(json.dumps(Q4_CASES)),
                                     "q8_cases": np.array(json.dumps(Q8_CASES)),
+                                    "e_cases": np.array(json.dumps(E_CASES)),
                                     "flash_cases": np.array(json.dumps(FLASH_CASES))},
                    tmp_path_factory.mktemp("torch_cuda_kernels"))
     if str(out["skip"]):
@@ -68,6 +80,14 @@ def test_q8_kernel_matches_plain(card, name):
     assert padded == 0.0
 
 
+@pytest.mark.parametrize("name", list(E_CASES))
+def test_fused_mlp_kernel_matches_plain(card, name):
+    err, scale, swapped, repeatable = card[f"e/{name}"].tolist()
+    assert err <= 2.0 ** -7 * scale, (err, scale)
+    assert swapped > 2.0 ** -7 * scale, (swapped, scale)
+    assert repeatable == 1.0
+
+
 @pytest.mark.parametrize("name", list(FLASH_CASES))
 def test_flash_kernel_matches_plain(card, name):
     row_err, err, empty_row = card[f"flash/{name}"].tolist()
@@ -79,7 +99,8 @@ def test_flash_kernel_matches_plain(card, name):
 def test_kernels_refuse_what_they_do_not_take(card):
     assert json.loads(str(card["refused"])) == {
         "q4_rows": "ValueError", "q8_rows": "ValueError", "q8_in16": "ValueError",
-        "q8_u8": "TypeError", "flash_f32": "TypeError", "flash_d96": "ValueError"}
+        "q8_u8": "TypeError", "e_rows": "ValueError", "e_shape": "ValueError",
+        "e_u8": "TypeError", "flash_f32": "TypeError", "flash_d96": "ValueError"}
 
 
 def test_each_case_counted_one_launch(card):
@@ -88,4 +109,5 @@ def test_each_case_counted_one_launch(card):
         sum(1 for *_, layers in Q4_CASES.values() if layers),
         len(FLASH_CASES),
         len(Q8_CASES),
+        3 * len(E_CASES),  # the checked run, the gate/up-swapped run, the repeat
     ]

@@ -1,10 +1,11 @@
-"""The port's slices as a whole: run_inspection with the inspector on the
-provider "cuda" (vis_tpu_torch.agents.install("cpu")), the auditor and the
-explainer on the mock provider, the small Qwen2.5-VL profile with int4
-layers and vocab head, schema-constrained lookahead decode and device
-preprocessing; and the explainer on the provider "cuda" under the bench's
-batching profile, which must reach the port's text engine with its paged
-scheduler.  Each runs in one subprocess with jax blocked."""
+"""The port's slices as a whole, through the port's own entry point
+(vis_tpu_torch.orchestration.graph.run_inspection): the inspector on the
+provider "cuda" (TORCH_DEVICE=cpu), the auditor and the explainer on the
+mock provider, the small Qwen2.5-VL profile with int4 layers and vocab
+head, schema-constrained lookahead decode and device preprocessing; and
+the explainer on the provider "cuda" under the bench's batching profile,
+which must reach the port's text engine with its paged scheduler.  Each
+runs in one subprocess with jax and vis_tpu blocked."""
 
 import json
 
@@ -45,7 +46,7 @@ def test_inspector_json_has_the_schema_keys(run):
 
 
 def test_no_kernel_launched_on_cpu(run):
-    assert run["launches"].tolist() == [0, 0, 0, 0]
+    assert run["launches"].tolist() == [0, 0, 0, 0, 0]
 
 
 def test_jax_never_loaded(run):

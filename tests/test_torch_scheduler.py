@@ -21,8 +21,9 @@ it also takes the prompt truncation against the pool's per-slot room.
 Also here: prompts through the scheduler's own whole-prompt prefill
 (``submit``) under slot and page churn (7 requests, 4 slots, a pool that
 holds 4 of them), against the JAX scheduler and the port's unbatched
-decode, token-exact; and settings the port does not implement raise
-NotImplementedError instead of changing its numbers.
+decode, token-exact; settings the port does not implement raise
+NotImplementedError instead of changing its numbers, and QUANTIZATION=int8
+builds int8 engines.
 """
 
 import json
@@ -167,7 +168,16 @@ def test_kv_quantization_int8_refused(refusals, role):
 
 @pytest.mark.parametrize("setting", ["quantization_int8", "dense_scheduler", "chunked_prefill"])
 def test_unported_settings_refused(refusals, setting):
+    """quantization_int8: int8 layers under an int4 vocab head at the
+    target scale (the port's int8 target profiles have int8 heads)."""
     assert refusals[setting], setting
+
+
+def test_quantization_int8_builds_int8_engines(refusals):
+    """QUANTIZATION=int8 (VOCAB_QUANTIZATION=same) gives both small profiles
+    int8 vocab tables, projections and MLP weights."""
+    built = json.loads(refusals["int8_built"])
+    assert built == {role: ["QuantizedWeight"] * 5 for role in ("explainer", "inspector")}
 
 
 CHURN_PROMPTS = (

@@ -5,7 +5,8 @@
 torch and jax deadlock when both load in one process here, and every
 pytest worker imports jax (tests/conftest.py), so the tests compute the
 JAX side in-process, write its inputs to IN.npz, and run this script as a
-subprocess: it blocks jax before anything else, runs the port on the CPU
+subprocess: it blocks jax and the JAX package (vis_tpu) before anything
+else, so any import of either fails loudly, runs the port on the CPU
 (every kernel wrapper takes its plain version there) and writes OUT.npz
 for the test to compare.  CASE names one function below.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import sys
 
 sys.modules["jax"] = None  # nothing in this process may load jax
+sys.modules["vis_tpu"] = None  # nor the JAX package: the port stands alone
 
 import json
 import os
@@ -159,6 +161,7 @@ def case_pipeline(inp):
         "CONSTRAINED_SCHEMA": "true",
         "CONSTRAINED_LOOKAHEAD": "8",
         "DEVICE_PREPROCESS": "true",
+        "TORCH_DEVICE": "cpu",
         "VLM_INSPECTOR_MAX_TOKENS": "160",
         "VLM_INSPECTOR_MIN_TOKENS": "150",
         "KV_CACHE_MAX_TOKENS": "1024",
@@ -169,13 +172,11 @@ def case_pipeline(inp):
         "REPORT_DIR": str(workdir / "reports"),
         "LOG_DIR": str(workdir / "logs"),
     })
-    from vis_tpu.agents import get_inspector
-    from vis_tpu.orchestration.graph import run_inspection
-    from vis_tpu_torch import agents as port_agents
+    from vis_tpu_torch.agents import get_inspector
     from vis_tpu_torch.ops import flash_attention as fa
     from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.orchestration.graph import run_inspection
 
-    port_agents.install("cpu")
     backend = get_inspector().backend
     raw = []
     generate = backend.generate
@@ -188,17 +189,90 @@ def case_pipeline(inp):
     state = run_inspection(str(inp["image"]), criticality="high", domain="general",
                            user_notes="port pipeline test")
     verdict = (state.get("safety_verdict") or {}).get("verdict")
-    jax_live = sys.modules.get("jax") is not None or any(
-        name.startswith("jax.") for name in sys.modules)
+    jax_live = any(sys.modules.get(name) is not None for name in sys.modules
+                   if name in ("jax", "vis_tpu") or name.startswith(("jax.", "vis_tpu.")))
     return {
         "verdict": np.array(verdict or ""),
         "analysis_failed": np.array(bool(state["inspector_result"]["analysis_failed"])),
         "backend": np.array(backend.name),
         "raw": np.array(raw[-1] if raw else ""),
         "launches": np.array([qz.q4_matmul_stacked.launches, qz.q4_matmul.launches,
-                              fa.flash_attention.launches, qz.q8_matmul.launches]),
+                              fa.flash_attention.launches, qz.q8_matmul.launches,
+                              qz.fused_swiglu_mlp.launches]),
         "jax_live": np.array(jax_live),
     }
+
+
+def case_standalone(inp):
+    """The port's copies of the JAX package's device-free modules: the mock
+    pipeline on each (image, criticality, domain) case, the constraint
+    tables, the byte tokenizer, the host preprocess and the config's
+    provider mapping."""
+    import tempfile
+
+    workdir = Path(str(inp["workdir"]))
+    for key in ("VLM_INSPECTOR_PROVIDER", "VLM_AUDITOR_PROVIDER", "EXPLAINER_PROVIDER",
+                "TORCH_DEVICE"):
+        os.environ.pop(key, None)
+    from vis_tpu_torch.utils import config as cfg
+
+    out = {"defaults": np.array(json.dumps({
+        name: getattr(cfg.get_config(reload=True), name) for name in (
+            "vlm_inspector_provider", "vlm_auditor_provider", "explainer_provider",
+            "torch_device")}))}
+    with tempfile.TemporaryDirectory() as tmp:
+        mapped = {}
+        for provider in ("tpu", "TPU", "cuda", "mock"):
+            path = Path(tmp) / f"models_{provider}.yaml"
+            path.write_text("\n".join(f"{section}:\n  provider: \"{provider}\""
+                                      for section in ("inspector", "auditor", "explainer")))
+            mapped[provider] = cfg._load_models_yaml(path)
+        out["yaml"] = np.array(json.dumps(mapped))
+    os.environ["TORCH_DEVICE"] = "cpu"
+    out["torch_device_env"] = np.array(cfg.get_config(reload=True).torch_device)
+
+    os.environ.update({
+        "USE_MOCK_RESPONSES": "true", "LOG_TO_FILE": "false",
+        "DATABASE_PATH": str(workdir / "inspections.db"),
+        "CHAT_HISTORY_DB": str(workdir / "chat.db"), "UPLOAD_DIR": str(workdir / "uploads"),
+        "REPORT_DIR": str(workdir / "reports"), "LOG_DIR": str(workdir / "logs"),
+    })
+    cfg.get_config(reload=True)
+    from vis_tpu_torch.agents import reset_agent_cache
+    from vis_tpu_torch.orchestration.graph import run_inspection
+
+    reset_agent_cache()
+    states = []
+    for image, criticality, domain in json.loads(str(inp["cases"])):
+        state = run_inspection(image, criticality=criticality, domain=domain,
+                               user_notes="standalone parity")
+        states.append({k: state.get(k) for k in json.loads(str(inp["fields"]))})
+    out["pipeline"] = np.array(json.dumps(states, default=str))
+
+    from vis_tpu_torch.serving.constrained import json_constraint_tables
+    from vis_tpu_torch.serving.schema import SCHEMAS, schema_constraint_tables
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    vocab = int(inp["vocab"])
+    tok = ByteTokenizer(vocab_size=vocab)
+    tables = {"json": json_constraint_tables(tok, vocab)}
+    tables.update({name: schema_constraint_tables(tok, vocab, name) for name in SCHEMAS})
+    for name, table in tables.items():
+        for field, value in vars(table).items():
+            if value is not None:
+                out[f"tables/{name}/{field}"] = np.asarray(value)
+    texts = json.loads(str(inp["texts"]))
+    out["encode"] = np.array(json.dumps([tok.encode(s) for s in texts]))
+    out["decode"] = np.array(json.dumps([tok.decode(ids) for ids in
+                                         json.loads(str(inp["ids"]))]))
+
+    from vis_tpu_torch.ops.preprocess import preprocess_image
+
+    for i, (image, max_dim) in enumerate(json.loads(str(inp["preprocess"]))):
+        patches = preprocess_image(image, max_image_dim=max_dim)
+        out[f"preprocess{i}/patches"] = patches.patches
+        out[f"preprocess{i}/grid"] = np.array([patches.grid_t, patches.grid_h, patches.grid_w])
+    return out
 
 
 def case_explainer_routing(inp):
@@ -211,13 +285,11 @@ def case_explainer_routing(inp):
         "EXPLAINER_VOCAB_QUANTIZATION": "int8", "CONTINUOUS_BATCHING": "true",
         "BATCHING_ROLES": "explainer", "DECODE_BATCH_SIZE": "3", "PAGED_KV_CACHE": "true",
         "KV_PAGE_SIZE": "128", "KV_POOL_TOKENS": "4992", "KV_CACHE_MAX_TOKENS": "2560",
-        "SCHEDULER_DECODE_CHUNK": "48", "LOG_TO_FILE": "false",
+        "SCHEDULER_DECODE_CHUNK": "48", "LOG_TO_FILE": "false", "TORCH_DEVICE": "cpu",
     })
-    from vis_tpu.agents import get_explainer, get_inspector
-    from vis_tpu_torch import agents as port_agents
+    from vis_tpu_torch.agents import get_explainer, get_inspector
     from vis_tpu_torch.ops.quantized import QuantizedWeight
 
-    port_agents.install("cpu")
     backend = get_explainer().backend
     engine = backend.engine
     sched = engine.scheduler
@@ -251,6 +323,10 @@ def case_boundaries(inp):
     lengths = torch.tensor([40])
     q8 = torch.randint(-128, 128, (48, 64), generator=gen, dtype=torch.int8)
     s8 = torch.rand((48,), generator=gen) * 0.01
+    gu8 = torch.randint(-128, 128, (96, 64), generator=gen, dtype=torch.int8)
+    gus = torch.rand((96,), generator=gen) * 0.01
+    dn8 = torch.randint(-128, 128, (64, 48), generator=gen, dtype=torch.int8)
+    dns = torch.rand((64,), generator=gen) * 0.01
     same = {
         "q4_matmul": torch.equal(qz.q4_matmul(x, q[1], scale[1]),
                                  qz.q4_matmul_plain(x, q[1], scale[1])),
@@ -261,11 +337,15 @@ def case_boundaries(inp):
             fa.flash_attention(*qkv, lengths, causal=True),
             fa.flash_attention_reference(*qkv, lengths, causal=True)),
         "q8_matmul": torch.equal(qz.q8_matmul(x, q8, s8), qz.q8_matmul_plain(x, q8, s8)),
+        "fused_swiglu_mlp": torch.equal(
+            qz.fused_swiglu_mlp(x, qz.QuantizedWeight(gu8, gus), qz.QuantizedWeight(dn8, dns)),
+            qz.fused_swiglu_mlp_plain(x, gu8, gus, dn8, dns)),
     }
     launches = {"q4_matmul": qz.q4_matmul.launches,
                 "q4_matmul_stacked": qz.q4_matmul_stacked.launches,
                 "flash_attention": fa.flash_attention.launches,
-                "q8_matmul": qz.q8_matmul.launches}
+                "q8_matmul": qz.q8_matmul.launches,
+                "fused_swiglu_mlp": qz.fused_swiglu_mlp.launches}
     try:
         port_agents.install("cuda")
         install_error = ""
@@ -325,6 +405,25 @@ def case_cuda_kernels(inp):
         out[f"flash/{name}"] = np.array([
             fa.row_relative_error(got, want),
             (got.float() - want.float()).abs().max().item(), max(empty, default=0.0)])
+    for name, (rows, hidden, inter) in json.loads(str(inp["e_cases"])).items():
+        gq = torch.randint(-128, 128, (2 * inter, hidden), generator=gen, device=dev,
+                           dtype=torch.int8)
+        gs = torch.rand((2 * inter,), generator=gen, device=dev) * 0.01
+        dq = torch.randint(-128, 128, (hidden, inter), generator=gen, device=dev,
+                           dtype=torch.int8)
+        ds = torch.rand((hidden,), generator=gen, device=dev) * 0.01
+        x = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+        got = qz.fused_swiglu_mlp(x, qz.QuantizedWeight(gq, gs), qz.QuantizedWeight(dq, ds))
+        want = qz.fused_swiglu_mlp_plain(x, gq, gs, dq, ds)
+        swapped = qz.fused_swiglu_mlp(
+            x, qz.QuantizedWeight(torch.cat([gq[inter:], gq[:inter]]),
+                                  torch.cat([gs[inter:], gs[:inter]])),
+            qz.QuantizedWeight(dq, ds))
+        out[f"e/{name}"] = np.array([
+            (got.float() - want.float()).abs().max().item(), want.float().abs().max().item(),
+            (swapped.float() - want.float()).abs().max().item(),
+            float(torch.equal(got, qz.fused_swiglu_mlp(
+                x, qz.QuantizedWeight(gq, gs), qz.QuantizedWeight(dq, ds))))])
     torch.cuda.synchronize()
     refused = {}
     x = torch.randn((qz.MAX_KERNEL_ROWS + 1, 64), device=dev)
@@ -335,11 +434,19 @@ def case_cuda_kernels(inp):
     q8 = torch.zeros((8, 64), dtype=torch.int8, device=dev)
     s8 = torch.ones((8,), device=dev)
     x24 = torch.randn((2, 24), device=dev)
+    gu = qz.QuantizedWeight(torch.zeros((64, 64), dtype=torch.int8, device=dev),
+                            torch.ones((64,), device=dev))
+    dn = qz.QuantizedWeight(torch.zeros((64, 32), dtype=torch.int8, device=dev),
+                            torch.ones((64,), device=dev))
     for name, call in (("q4_rows", lambda: qz.q4_matmul(x, q, scale)),
                        ("q8_rows", lambda: qz.q8_matmul(x, q8, s8)),
                        ("q8_in16", lambda: qz.q8_matmul(
                            x24, torch.zeros((8, 24), dtype=torch.int8, device=dev), s8)),
                        ("q8_u8", lambda: qz.q8_matmul(x[:2], q8.to(torch.uint8), s8)),
+                       ("e_rows", lambda: qz.fused_swiglu_mlp(x, gu, dn)),
+                       ("e_shape", lambda: qz.fused_swiglu_mlp(x[:2], gu, gu)),
+                       ("e_u8", lambda: qz.fused_swiglu_mlp(
+                           x[:2], qz.QuantizedWeight(gu.q.to(torch.uint8), gu.scale), dn)),
                        ("flash_f32", lambda: fa.flash_attention(*qkv)),
                        ("flash_d96", lambda: fa.flash_attention(*qkv96))):
         try:
@@ -349,7 +456,8 @@ def case_cuda_kernels(inp):
             refused[name] = type(exc).__name__
     out["refused"] = np.array(json.dumps(refused))
     out["launches"] = np.array([qz.q4_matmul.launches, qz.q4_matmul_stacked.launches,
-                                fa.flash_attention.launches, qz.q8_matmul.launches])
+                                fa.flash_attention.launches, qz.q8_matmul.launches,
+                                qz.fused_swiglu_mlp.launches])
     return out
 
 
@@ -371,6 +479,130 @@ def case_int8(inp):
         scaling = dict(json.loads(str(inp["rope_scaling"]))) if scaled else None
         out[f"rope{i}"] = _np(rope_frequencies(int(head_dim), theta, rope_scaling=scaling))
     return out
+
+
+def _flat(tree, prefix, out):
+    """A port parameter tree as "/"-joined paths -> numpy, floats as f32."""
+    from vis_tpu_torch.ops.quantized import QuantizedWeight
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flat(v, f"{prefix}/{k}", out)
+    elif isinstance(tree, QuantizedWeight):
+        out[f"{prefix}/q"], out[f"{prefix}/scale"] = tree.q.numpy(), tree.scale.numpy()
+    else:
+        out[prefix] = _np(tree)
+    return out
+
+
+def case_int8_engine(inp):
+    """Kernel E's plain version through swiglu_mlp, int8 stacked
+    quantization, the int8 layer pick, and the small Qwen2.5-VL text stack
+    and small Llama text profile at int8 (prefill, a lookahead window, a
+    paged scheduler chunk)."""
+    from vis_tpu_torch.models.common import decoder as D
+    from vis_tpu_torch.models.common import layers
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.serving import engine as E
+
+    out = {}
+    for name in json.loads(str(inp["mlp_cases"])):
+        x = _t(inp[f"mlp/{name}/x"])
+        gateup = qz.QuantizedWeight(_t(inp[f"mlp/{name}/gateup_q"]),
+                                    _t(inp[f"mlp/{name}/gateup_scale"]))
+        down = qz.QuantizedWeight(_t(inp[f"mlp/{name}/down_q"]),
+                                  _t(inp[f"mlp/{name}/down_scale"]))
+        out[f"mlp/{name}/fused"] = np.array(qz.fused_mlp_applies(x, gateup, down))
+        out[f"mlp/{name}"] = _np(layers.swiglu_mlp(x, {"gateup_proj": gateup,
+                                                       "down_proj": down}))
+
+    calls = {"n": 0}
+    fused = layers.fused_swiglu_mlp
+
+    def counting(*args, **kwargs):
+        calls["n"] += 1
+        return fused(*args, **kwargs)
+
+    layers.fused_swiglu_mlp = counting
+    seq_len, s_pad, max_len, window, eos, steps = inp["decode_dims"].tolist()
+    fused_calls = {}
+    for profile, config in (("qwen", E.small_config().text), ("llama", E.small_text_config())):
+        flat = {k[len(f"{profile}/float/"):]: inp[k] for k in inp.files
+                if k.startswith(f"{profile}/float/")}
+        stacked = D.params_from_numpy(flat, config.dtype)
+        _flat(D.quantize_stacked_params(stacked, quantize_embeddings=True, mode="int8"),
+              f"{profile}/int8", out)
+        flat = {k[len(f"{profile}/params/"):]: inp[k] for k in inp.files
+                if k.startswith(f"{profile}/params/")}
+        params = D.params_from_numpy(flat, config.dtype)
+        calls["n"] = 0
+        if profile == "qwen":
+            stack = params["layers_stacked"]["mlp"]["gateup_proj"]
+            pick = D._pick_layer(params["layers_stacked"], 5)["mlp"]["gateup_proj"]
+            out["pick"] = np.array(json.dumps({
+                "type": type(pick).__name__, "contiguous": pick.q.is_contiguous()
+                and pick.scale.is_contiguous(),
+                "view": pick.q.data_ptr() == stack.q[5].data_ptr()
+                and pick.scale.data_ptr() == stack.scale[5].data_ptr(),
+                "equal": torch.equal(pick.q, stack.q[5]) and torch.equal(pick.scale,
+                                                                         stack.scale[5])}))
+            cache = _cache(config, 1, max_len)
+            ids = _t(inp["qwen/ids"]).long()
+            logits, cache = D.prefill_scan(config, params,
+                                           layers.embed(ids, params["embed_tokens"]),
+                                           _t(inp["qwen/positions"]), cache, [seq_len])
+            out["qwen/prefill"] = _np(logits)
+            tables = {k: _t(inp[f"qwen/tables/{k}"]) for k in
+                      ("token_ok", "token_trans", "cost_after", "forced_token", "forced_state")}
+            con = D.DecodeConstraint(
+                token_ok=tables["token_ok"], token_trans=tables["token_trans"],
+                cost_after=tables["cost_after"], state=_t(inp["qwen/con/state"]).long(),
+                remaining=_t(inp["qwen/con/remaining"]).long(),
+                active=_t(inp["qwen/con/active"]),
+                min_remaining=_t(inp["qwen/con/min_remaining"]).long())
+            tokens, valid, last, cache, _ = D.decode_loop_lookahead(
+                config, params, logits, seq_len, cache, con, tables["forced_token"],
+                tables["forced_state"], 1, window, eos_id=eos)
+            out.update({"qwen/tokens": tokens.numpy(), "qwen/valid": valid.numpy(),
+                        "qwen/window": _np(last), "qwen/lengths": np.array(cache.lengths_host)})
+        else:
+            con = D.DecodeConstraint(
+                *(_t(inp[f"llama/tables/{k}"]) for k in ("token_ok", "token_trans",
+                                                          "cost_after")),
+                state=_t(inp["llama/con/state"]).long(),
+                remaining=_t(inp["llama/con/remaining"]).long(),
+                active=_t(inp["llama/con/active"]),
+                min_remaining=_t(inp["llama/con/min_remaining"]).long(),
+                table_idx=_t(inp["llama/con/table_idx"]).long())
+            lengths = _t(inp["llama/lengths"])
+            first = []
+            for slot, plen in enumerate(lengths.tolist()):
+                staging = _cache(config, 1, inp[f"llama/prompt{slot}"].shape[1])
+                prompt = _t(inp[f"llama/prompt{slot}"]).long()
+                logits, _ = D.prefill_scan(
+                    config, params, layers.embed(prompt, params["embed_tokens"]),
+                    torch.arange(prompt.shape[1], dtype=torch.int32)[None], staging, [plen])
+                first.append(logits)
+            out["llama/prefill"] = _np(torch.cat(first))
+            pool_k = _t(inp["llama/pool_k"]).to(config.dtype)
+            pool_v = _t(inp["llama/pool_v"]).to(config.dtype)
+            tokens, last, _, _, out_len, con = D.decode_loop_paged_constrained(
+                config, params, _t(inp["llama/first"]), lengths, pool_k, pool_v,
+                _t(inp["llama/page_tables"]), lengths, con, steps, eos_id=eos,
+                budget=[steps] * len(lengths))
+            out.update({"llama/tokens": tokens.numpy(), "llama/chunk": _np(last),
+                        "llama/lengths": out_len.numpy(), "llama/state": con.state.numpy()})
+        fused_calls[profile] = calls["n"]
+    layers.fused_swiglu_mlp = fused
+    out["fused_calls"] = np.array(json.dumps(fused_calls))
+    return out
+
+
+def _cache(config, batch, max_len):
+    from vis_tpu_torch.models.common.layers import KVCache
+
+    return KVCache.create(config.num_layers, batch, max_len, config.num_kv_heads,
+                          config.head_dim_, config.dtype, "cpu")
 
 
 def _tiny_llama(inp):
@@ -534,10 +766,10 @@ def case_bundle(inp):
     """The explainer bundle through the port's scheduler, and the same three
     calls made one by one on an engine without a scheduler."""
     os.environ.update(json.loads(str(inp["env"])))
-    from vis_tpu.agents.explainer import ExplainerAgent
-    from vis_tpu.schemas.models import VLMAnalysisResult
-    from vis_tpu.serving.tokenizer import ByteTokenizer
+    from vis_tpu_torch.agents.explainer import ExplainerAgent
+    from vis_tpu_torch.schemas.models import VLMAnalysisResult
     from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
 
     cfg = _tiny_llama(inp)
     params = {"text": _params(inp, "params/", cfg)}
@@ -591,9 +823,9 @@ def case_churn(inp):
     """Prompts through the scheduler's own whole-prompt prefill (submit):
     more requests than slots and than the pool holds at once, then the
     same prompts through the engine's unbatched greedy decode."""
-    from vis_tpu.serving.tokenizer import ByteTokenizer
     from vis_tpu_torch.serving import engine as E
     from vis_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
 
     cfg = _tiny_llama(inp)
     params = _params(inp, "params/", cfg)
@@ -621,12 +853,13 @@ def case_churn(inp):
 
 def case_refusals(inp):
     """Settings the port does not implement raise instead of changing its
-    numbers: KV_QUANTIZATION=int8, QUANTIZATION=int8, dense scheduler slots,
-    chunked prefill."""
+    numbers: KV_QUANTIZATION=int8, QUANTIZATION=int8 layers under an int4
+    vocab head at the target scale, dense scheduler slots, chunked
+    prefill.  QUANTIZATION=int8 itself builds int8 engines."""
     os.environ.update({"DEV_PROFILE": "small", "QUANTIZATION": "int4",
                        "KV_QUANTIZATION": "int8", "LOG_TO_FILE": "false"})
-    from vis_tpu.utils.config import get_config
     from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.utils.config import get_config
 
     def refused(call):
         try:
@@ -639,7 +872,19 @@ def case_refusals(inp):
     for role, model in (("explainer", "meta-llama/Llama-3.1-8B-Instruct"),
                         ("inspector", "Qwen/Qwen2.5-VL-7B-Instruct")):
         out[f"kv_int8/{role}"] = refused(lambda: E.build_engine(role, model, "cpu"))
-    os.environ.update({"KV_QUANTIZATION": "none", "QUANTIZATION": "int8"})
+    os.environ.update({"KV_QUANTIZATION": "none", "QUANTIZATION": "int8",
+                       "VOCAB_QUANTIZATION": "same"})
+    get_config(reload=True)
+    built = {role: E.build_engine(role, model, "cpu") for role, model in (
+        ("explainer", "meta-llama/Llama-3.1-8B-Instruct"),
+        ("inspector", "Qwen/Qwen2.5-VL-7B-Instruct"))}
+    out["int8_built"] = json.dumps({
+        role: [type(engine.params["text"][name]).__name__ for name in ("embed_tokens",)]
+        + [type(engine.params["text"]["layers_stacked"][name]).__name__
+           for name in ("qkv_proj", "o_proj")]
+        + [type(w).__name__ for w in engine.params["text"]["layers_stacked"]["mlp"].values()]
+        for role, engine in built.items()})
+    os.environ.update({"DEV_PROFILE": "target", "EXPLAINER_VOCAB_QUANTIZATION": "int4"})
     get_config(reload=True)
     out["quantization_int8"] = refused(
         lambda: E.build_engine("explainer", "meta-llama/Llama-3.1-8B-Instruct", "cpu"))

@@ -1,13 +1,13 @@
 """Profile the PyTorch/CUDA port's decode on one NVIDIA GPU.
 
     python3 tools/profile_port_decode.py [--role inspector|explainer]
-        [--out chiprun_out/profile_port_decode.txt]
+        [--quantization int4|int8] [--out chiprun_out/profile_port_decode.txt]
 
 Builds the kernels and chip_smoke.py's engines (random weights, its seed
-and serving profile: the Qwen2.5-VL-7B int4 inspector and the Llama-3.1-8B
-explainer on the port, the auditor mocked; for ``--role inspector`` the
-explainer mocked too) and sends assets/sample.jpg through run_inspection
-once to warm up.  Then, for ``--role inspector``,
+and serving profile, int4 or its int8 slice's: the Qwen2.5-VL-7B
+inspector and the Llama-3.1-8B explainer on the port, the auditor mocked;
+for ``--role inspector`` the explainer mocked too) and sends
+assets/sample.jpg through the port's run_inspection once to warm up.  Then, for ``--role inspector``,
 run_inspection twice (one timed request, one under torch.profiler); for
 ``--role explainer``, the explainer's report bundle on that request's
 findings twice (timed, profiled), through the paged scheduler.  It prints:
@@ -32,7 +32,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-import chip_smoke  # noqa: E402  (blocks jax, sets the repo on sys.path)
+import chip_smoke  # noqa: E402  (blocks jax and vis_tpu, sets the repo on sys.path)
 
 
 def _device_us(evt) -> float:
@@ -45,10 +45,12 @@ def _device_us(evt) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--role", choices=("inspector", "explainer"), default="inspector")
+    ap.add_argument("--quantization", choices=("int4", "int8"), default="int4")
     ap.add_argument("--out", default="chiprun_out/profile_port_decode.txt")
     args = ap.parse_args()
 
-    for key, value in chip_smoke.PROFILE.items():
+    profile = chip_smoke.PROFILE if args.quantization == "int4" else chip_smoke.INT8_PROFILE
+    for key, value in profile.items():
         os.environ[key] = value
     if args.role == "inspector":
         os.environ["EXPLAINER_PROVIDER"] = "mock"
@@ -59,20 +61,24 @@ def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from vis_tpu.agents import get_explainer, get_inspector
-    from vis_tpu.orchestration.graph import run_inspection
-    from vis_tpu.schemas.models import VLMAnalysisResult
-    from vis_tpu.utils.logger import get_timings
-    from vis_tpu_torch import agents as port_agents
+    from vis_tpu_torch import agents
+    from vis_tpu_torch.agents import get_explainer, get_inspector
     from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.orchestration.graph import run_inspection
+    from vis_tpu_torch.schemas.models import VLMAnalysisResult
+    from vis_tpu_torch.utils.logger import get_timings
 
-    port_agents.install("cuda:0", seed=chip_smoke.SEED)
+    agents.install(chip_smoke.DEVICE, seed=chip_smoke.SEED)
     engine = get_inspector().backend.engine
+    # The prefill's vocab head, then per window: kernel B once (int4), or
+    # kernel D for each layer's qkv and o and for the head (int8).
+    head = qz.q4_matmul if args.quantization == "int4" else qz.q8_matmul
+    per_window = 1 if args.quantization == "int4" else 2 * engine.text_config.num_layers + 1
     state = {}
 
     def request(label: str) -> float:
         get_timings(reset=True)
-        qz.q4_matmul.launches = 0
+        head.launches = 0
         start = time.perf_counter()
         state.update(run_inspection(str(chip_smoke.SAMPLE), criticality="high",
                                     domain="general", user_notes="profile"))
@@ -82,8 +88,11 @@ def main() -> int:
             raise AssertionError(f"{label}: {state['inspector_result']['failure_reason']}")
         spans = {k: round(sum(v), 4) for k, v in get_timings().items()
                  if k.startswith("engine.")}
+        # The explainer launches D too when it is not mocked.
+        windows = ((head.launches - 1) // per_window if args.role == "inspector"
+                   else "not counted")
         print(f"[{label}] wall {wall:.3f} s, spans {spans}, decode tokens "
-              f"{engine.last_decode_tokens}, windows {qz.q4_matmul.launches - 1}")
+              f"{engine.last_decode_tokens}, windows {windows}")
         return wall
 
     def bundle(label: str) -> float:

@@ -197,17 +197,23 @@ def fuse_stacked_projections(stacked: Params) -> Params:
 
 
 def quantize_stacked_params(stacked: Params, quantize_embeddings: bool = False,
-                            vocab_mode: str = "int4") -> Params:
-    """Int4 weight-only quantization of the stacked projections (and, with
-    quantize_embeddings, of the vocab tables, rows padded to 512: int4 or
-    int8 by ``vocab_mode``)."""
-    if vocab_mode not in ("int4", "int8", "none"):
-        raise ValueError(f"vocab_mode {vocab_mode!r}: the port has int4, int8 and none")
+                            vocab_mode: Optional[str] = None, mode: str = "int4") -> Params:
+    """Weight-only quantization of the stacked projections: ``mode`` "int4"
+    (QuantizedWeight4, q [L, O, I/2]) or "int8" (QuantizedWeight, q
+    [L, O, I], scale [L, O]); with quantize_embeddings, of the vocab tables
+    too, rows padded to 512, by ``vocab_mode`` (default: ``mode``).  The
+    bytes equal the JAX package's ``quantize_stacked_params``."""
+    vocab_mode = vocab_mode or mode
+    if mode not in ("int4", "int8") or vocab_mode not in ("int4", "int8", "none"):
+        raise ValueError(f"mode {mode!r} / vocab_mode {vocab_mode!r}: the port has "
+                         "int4 and int8 layers, int4, int8 and none vocab tables")
     quantize_vocab = quantize_weight4 if vocab_mode == "int4" else quantize_weight
+    quantize_layer, stack_cls = ((quantize_weight4, QuantizedWeight4) if mode == "int4"
+                                 else (quantize_weight, QuantizedWeight))
 
     def quantize_stack(w):
-        qws = [quantize_weight4(layer) for layer in w]
-        return QuantizedWeight4(
+        qws = [quantize_layer(layer) for layer in w]
+        return stack_cls(
             q=torch.stack([qw.q for qw in qws]),
             scale=torch.stack([qw.scale for qw in qws]),
         )
@@ -232,13 +238,17 @@ def quantize_stacked_params(stacked: Params, quantize_embeddings: bool = False,
 
 def _pick_layer(stacked: Params, idx: int) -> Params:
     """Layer ``idx`` of the stacked tree: int4 leaves become
-    QuantizedWeight4Pick (kernel A reads the layer in place), tensors views."""
+    QuantizedWeight4Pick (kernel A reads the layer in place), int8 leaves a
+    QuantizedWeight of contiguous views (q[idx], scale[idx]), tensors
+    views."""
 
     def pick(w):
         if isinstance(w, dict):
             return {k: pick(v) for k, v in w.items()}
         if isinstance(w, QuantizedWeight4):
             return QuantizedWeight4Pick(w.q, w.scale, idx)
+        if isinstance(w, QuantizedWeight):
+            return QuantizedWeight(w.q[idx], w.scale[idx])
         return w[idx]
 
     return pick(stacked)
@@ -399,7 +409,7 @@ def extend_scan(
 
 class DecodeConstraint(NamedTuple):
     """Grammar state for constrained decode (tables from
-    vis_tpu.serving.schema / constrained, moved to the device).  The allowed
+    vis_tpu_torch.serving.schema / constrained, moved to the device).  The allowed
     set is token_ok[state] & (cost_after[state] < remaining), with closing
     moves blocked while remaining > min_remaining.  With ``table_idx`` the
     tables are stacked [T, S, K] (and ``class_of`` [T, V]) and each row

@@ -20,6 +20,8 @@ from vis_tpu_torch.ops.quantized import (
     QuantizedWeight4Pick,
     embed_rows4,
     embed_rows8,
+    fused_mlp_applies,
+    fused_swiglu_mlp,
     quantized_linear,
     quantized_linear4,
     quantized_linear4_stacked,
@@ -181,9 +183,16 @@ class KVCache:
 
 
 def swiglu_mlp(x: torch.Tensor, params: Params) -> torch.Tensor:
-    """down(silu(gate(x)) * up(x)), with the fused gate+up layout."""
+    """down(silu(gate(x)) * up(x)), with the fused gate+up layout.  Int8
+    weights take kernel E for the whole MLP where the JAX package's rule
+    sends them to its fused kernel (decode-sized rows); otherwise the
+    projections run one by one."""
     if "gateup_proj" in params:
-        gate, up = linear(x, params["gateup_proj"]).chunk(2, dim=-1)
+        gateup, down = params["gateup_proj"], params["down_proj"]
+        if (isinstance(gateup, QuantizedWeight) and isinstance(down, QuantizedWeight)
+                and fused_mlp_applies(x, gateup, down)):
+            return fused_swiglu_mlp(x, gateup, down)
+        gate, up = linear(x, gateup).chunk(2, dim=-1)
     else:
         gate = linear(x, params["gate_proj"])
         up = linear(x, params["up_proj"])

@@ -43,6 +43,7 @@ _SIGNATURES = {
     "vt_q4_matmul_stacked": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "vt_q8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_q8_swiglu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

@@ -5,7 +5,7 @@ goes to the device once; the bicubic resize runs as two matmuls against
 PIL-style interpolation matrices (``resize_weights``, a copy of the JAX
 package's numpy function, tested equal to it), then clip, CLIP
 normalization and the merge-window patchify of
-``vis_tpu.ops.preprocess.patchify`` (the same reshape and axis order,
+``vis_tpu_torch.ops.preprocess.patchify`` (the same reshape and axis order,
 written with ``permute``).
 """
 
@@ -18,7 +18,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from vis_tpu.ops.preprocess import (
+from vis_tpu_torch.ops.preprocess import (
     CLIP_MEAN,
     CLIP_STD,
     DEFAULT_MAX_PIXELS,

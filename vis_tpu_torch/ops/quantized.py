@@ -1,4 +1,4 @@
-"""Weight-only quantization and its matmul kernels: int4 (A and B), int8 (D).
+"""Weight-only quantization and its kernels: int4 (A and B), int8 (D, E).
 
 Counterpart of ``vis_tpu/ops/quantized.py``.  Int4 has the same byte layout:
 ``q [out, in//2]`` u8 packs input j (low nibble) and input j + in//2 (high
@@ -21,8 +21,12 @@ to bf16, products of x and the exact int8 value summed in f32, and the sum
 multiplied by ``scale[o]`` afterwards.  Kernel D carries it on the card
 (``csrc/q8_matmul.cu``):
 
-- ``q8_matmul`` (kernel D, TPU ``_q8_matmul_kernel``): the explainer's int8
-  vocab head.
+- ``q8_matmul`` (kernel D, TPU ``_q8_matmul_kernel``): int8 vocab heads and,
+  under QUANTIZATION=int8, every decoder's qkv and o projections;
+- ``fused_swiglu_mlp`` (kernel E, TPU ``_fused_mlp_kernel``,
+  ``csrc/q8_swiglu.cu``): a whole int8 decoder MLP,
+  down(silu(gate(x)) * up(x)), with h rounded to bf16 before the down
+  product; ``fused_mlp_applies`` is the JAX package's dispatch rule for it.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); ``launches`` counts the kernel
@@ -293,6 +297,95 @@ def quantized_linear(x: torch.Tensor, qw: QuantizedWeight,
     return _linear(x, quantized_matmul, qw, qw.q.shape[0], bias)
 
 
+def mlp_block_size(inter: int, hidden: int) -> Optional[int]:
+    """The TPU kernel's intermediate block (``vis_tpu`` ``_mlp_block_size``):
+    the largest multiple of 128 that divides ``inter`` and keeps three int8
+    weight blocks under 4 MB, or None.  The port keeps it only as the
+    dispatch rule, so that kernel E runs exactly where the TPU ran its."""
+    cap = (4 * 1024 * 1024) // max(1, 3 * hidden)
+    for candidate in (1280, 1024, 896, 768, 640, 512, 384, 256, 128):
+        if candidate <= cap and inter % candidate == 0:
+            return candidate
+    return None
+
+
+def fused_mlp_applies(x: torch.Tensor, gateup: QuantizedWeight,
+                      down: QuantizedWeight) -> bool:
+    """The JAX package's rule for its fused int8 MLP kernel: at most
+    MAX_KERNEL_ROWS rows, hidden % 128 == 0, an intermediate block exists,
+    and down is [hidden, inter]."""
+    rows = x.numel() // x.shape[-1]
+    hidden = x.shape[-1]
+    inter = gateup.q.shape[0] // 2
+    return (rows <= MAX_KERNEL_ROWS and hidden % 128 == 0
+            and mlp_block_size(inter, hidden) is not None
+            and tuple(down.q.shape) == (hidden, inter))
+
+
+def fused_swiglu_mlp_plain(x: torch.Tensor, gq: torch.Tensor, gs: torch.Tensor,
+                           dq: torch.Tensor, ds: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel E on x [B, H]: g and u are f32 sums
+    of bf16(x) times the exact int8 gate / up rows (``gq`` [2I, H], gate
+    rows first) times their scales, h = bf16(silu(g) * u), and
+    y = (h . dq^T, f32 sums) * ds, cast to x's type."""
+    inter = gq.shape[0] // 2
+    gu = (x.to(torch.bfloat16).to(torch.float32) @ gq.to(torch.float32).T) * gs
+    g, u = gu[:, :inter], gu[:, inter:]
+    h = (g * torch.sigmoid(g) * u).to(torch.bfloat16).to(torch.float32)
+    return ((h @ dq.to(torch.float32).T) * ds).to(x.dtype)
+
+
+def fused_swiglu_mlp(x: torch.Tensor, gateup: QuantizedWeight,
+                     down: QuantizedWeight) -> torch.Tensor:
+    """Kernel E wrapper: down(silu(gate(x)) * up(x)) for x [..., H] with
+    the fused int8 gateup [2I, H] (gate rows first) and down [H, I] ->
+    [..., H] in x's type.  Runs the plain version for CPU tensors; on the
+    card launches the kernel or raises on what it does not take."""
+    lead, hidden = x.shape[:-1], x.shape[-1]
+    flat = x.reshape(-1, hidden)
+    gq, gs, dq, ds = gateup.q, gateup.scale, down.q, down.scale
+    if x.device.type == "cpu":
+        return fused_swiglu_mlp_plain(flat, gq, gs, dq, ds).reshape(*lead, hidden)
+    from vis_tpu_torch.ops import _kernels
+
+    if any(t.dtype != torch.int8 for t in (gq, dq)) or any(
+            t.dtype != torch.float32 for t in (gs, ds)):
+        raise TypeError(f"fused int8 MLP wants i8 weights / f32 scales, got "
+                        f"{gq.dtype}, {dq.dtype} / {gs.dtype}, {ds.dtype}")
+    if not all(t.is_contiguous() for t in (gq, gs, dq, ds)):
+        raise ValueError("fused int8 MLP needs contiguous weights and scales")
+    if any(t.device != x.device for t in (gq, gs, dq, ds)):
+        raise ValueError("fused int8 MLP operands must share one device")
+    batch = flat.shape[0]
+    inter = gq.shape[0] // 2
+    if (gq.shape != (2 * inter, hidden) or gs.shape != (2 * inter,)
+            or dq.shape != (hidden, inter) or ds.shape != (hidden,)):
+        raise ValueError(f"fused int8 MLP shapes disagree: x {tuple(x.shape)}, gateup "
+                         f"{tuple(gq.shape)}/{tuple(gs.shape)}, down {tuple(dq.shape)}/"
+                         f"{tuple(ds.shape)}")
+    if hidden % 16 or inter % 16 or gq.data_ptr() % 16 or dq.data_ptr() % 16:
+        raise ValueError("fused int8 MLP reads 16 bytes per lane: hidden, inter and the "
+                         "weights' addresses must be multiples of 16")
+    if not 1 <= batch <= MAX_KERNEL_ROWS:
+        raise ValueError(f"fused int8 MLP takes 1..{MAX_KERNEL_ROWS} rows, got {batch}")
+    xb = flat.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    h = torch.empty((batch, inter), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((batch, hidden), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels.library().vt_q8_swiglu(
+            xb.data_ptr(), gq.data_ptr(), gs.data_ptr(), dq.data_ptr(), ds.data_ptr(),
+            h.data_ptr(), y.data_ptr(), batch, hidden, inter, _kernels.stream_of(x),
+        )
+    _kernels.check(err, "vt_q8_swiglu")
+    fused_swiglu_mlp.launches += 1
+    return y.to(x.dtype).reshape(*lead, hidden)
+
+
+fused_swiglu_mlp.launches = 0
+
+
 def embed_rows8(table: QuantizedWeight, token_ids: torch.Tensor) -> torch.Tensor:
     """Embedding gather from an int8 table, dequantized to bf16."""
     return (table.q[token_ids].to(torch.float32) * table.scale[token_ids][..., None]).to(
@@ -306,6 +399,10 @@ __all__ = [
     "QuantizedWeight4Pick",
     "embed_rows4",
     "embed_rows8",
+    "fused_mlp_applies",
+    "fused_swiglu_mlp",
+    "fused_swiglu_mlp_plain",
+    "mlp_block_size",
     "q4_matmul",
     "q4_matmul_plain",
     "q4_matmul_stacked",

@@ -6,15 +6,17 @@ the continuous-batching scheduler).
 Counterpart of ``vis_tpu/serving/engine.py`` for these two paths.  The
 engine core takes its serving settings as arguments (``ServingSettings``);
 only ``build_engine`` and the ``EngineBackend`` adapter read
-``vis_tpu.utils.config``.  Every tensor lives on the engine's ``device``;
+``vis_tpu_torch.utils.config``.  Every tensor lives on the engine's ``device``;
 nothing picks a device on its own.
 
 Weights are random (no checkpoint loading yet): ``build_target_engine``
 materializes Qwen2.5-VL-7B and ``build_target_text_engine`` Llama-3.1-8B
-at full width and depth, int4 decoder layers (and vision projections), an
-int4 or int8 vocab head, straight on the device from an explicit
-``torch.Generator``; ``build_small_engine`` and ``build_small_text_engine``
-are the small profiles the CPU tests drive.
+at full width and depth, straight on the device from an explicit
+``torch.Generator``: under QUANTIZATION=int4 int4 decoder layers (and
+vision projections) with an int4 (Qwen) or int8 (Llama) vocab head, under
+QUANTIZATION=int8 int8 everywhere (layers, vocab tables, vision
+projections).  ``build_small_engine`` and ``build_small_text_engine`` are
+the small profiles the CPU tests drive.
 """
 
 from __future__ import annotations
@@ -26,14 +28,14 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from vis_tpu.ops.preprocess import (
+from vis_tpu_torch.ops.preprocess import (
     PATCH_BUCKETS,
     build_mrope_positions,
     preprocess_image,
 )
-from vis_tpu.serving.tokenizer import ByteTokenizer
-from vis_tpu.utils.config import config as app_config
-from vis_tpu.utils.logger import setup_logger, span
+from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+from vis_tpu_torch.utils.config import config as app_config
+from vis_tpu_torch.utils.logger import setup_logger, span
 from vis_tpu_torch.models.common.decoder import (
     DecodeConstraint,
     DecoderConfig,
@@ -73,11 +75,11 @@ def load_constraint_tables(tokenizer, vocab_size: int, schema: Optional[str],
     and move them to ``device``: (token_ok, token_trans, cost_after,
     class_of-or-None, host ConstraintTables), or None when unsupported."""
     if schema is not None:
-        from vis_tpu.serving.schema import schema_constraint_tables
+        from vis_tpu_torch.serving.schema import schema_constraint_tables
 
         tables = schema_constraint_tables(tokenizer, vocab_size, schema)
     else:
-        from vis_tpu.serving.constrained import json_constraint_tables
+        from vis_tpu_torch.serving.constrained import json_constraint_tables
 
         tables = json_constraint_tables(tokenizer, vocab_size)
     if tables is None:
@@ -428,8 +430,8 @@ class Engine:
         then decode together in the scheduler's slots.  The scheduler gets
         the generic JSON grammar and every registered schema, stacked as far
         as its size budget allows (``has_table``)."""
-        from vis_tpu.serving.constrained import json_constraint_tables
-        from vis_tpu.serving.schema import SCHEMAS, schema_constraint_tables
+        from vis_tpu_torch.serving.constrained import json_constraint_tables
+        from vis_tpu_torch.serving.schema import SCHEMAS, schema_constraint_tables
         from vis_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
 
         vocab = self.text_config.vocab_size
@@ -572,18 +574,19 @@ _VISION_QUANT_KEYS = frozenset({
 })
 
 
-def _quantize_vision_tree(tree: Any) -> Any:
-    """Int4-quantize a vision tower's projection weights by name."""
-    from vis_tpu_torch.ops.quantized import quantize_weight4
+def _quantize_vision_tree(tree: Any, mode: str = "int4") -> Any:
+    """Int4- or int8-quantize a vision tower's projection weights by name."""
+    from vis_tpu_torch.ops.quantized import quantize_weight, quantize_weight4
 
+    quantize = quantize_weight4 if mode == "int4" else quantize_weight
     if isinstance(tree, dict):
         return {
-            k: (quantize_weight4(v) if k in _VISION_QUANT_KEYS and torch.is_tensor(v)
-                and v.dim() == 2 and v.shape[1] % 2 == 0 else _quantize_vision_tree(v))
+            k: (quantize(v) if k in _VISION_QUANT_KEYS and torch.is_tensor(v)
+                and v.dim() == 2 and v.shape[1] % 2 == 0 else _quantize_vision_tree(v, mode))
             for k, v in tree.items()
         }
     if isinstance(tree, list):
-        return [_quantize_vision_tree(v) for v in tree]
+        return [_quantize_vision_tree(v, mode) for v in tree]
     return tree
 
 
@@ -610,56 +613,85 @@ def random_q4(gen: torch.Generator, *lead, out: int, inn: int, device) -> Quanti
     )
 
 
-def _random_target_params(cfg: Qwen25VLConfig, gen: torch.Generator, device) -> Dict[str, Any]:
-    """Qwen2.5-VL-7B in its serving layout (stacked, fused, int4), made leaf
-    by leaf on the device: random bytes for packed weights, N(0,1)*0.005+0.01
-    for every float leaf (scales, norms, biases), so no bf16 copy of the
-    model is ever staged."""
+def random_q8_stack(gen: torch.Generator, *lead, out: int, inn: int,
+                    device) -> QuantizedWeight:
+    """A random int8 weight [*lead, out, inn] as the target profile makes
+    it: random bytes over -128..127 (the JAX package's random bits cast to
+    int8), one scale N(0,1)*0.005+0.01 per output row."""
+    return QuantizedWeight(
+        q=torch.randint(-128, 128, (*lead, out, inn), generator=gen, device=device,
+                        dtype=torch.int8),
+        scale=_random_floats(gen, *lead, out, device=device, dtype=torch.float32),
+    )
+
+
+def _random_layer_weight(mode: str):
+    """The random weight maker of a target profile's layers: int4 or int8."""
+    if mode not in ("int4", "int8"):
+        raise ValueError(f"target profiles are int4 or int8, not {mode!r}")
+    return random_q4 if mode == "int4" else random_q8_stack
+
+
+def _random_target_params(cfg: Qwen25VLConfig, gen: torch.Generator, device,
+                          mode: str = "int4") -> Dict[str, Any]:
+    """Qwen2.5-VL-7B in its serving layout (stacked, fused; ``mode`` int4:
+    int4 layers, vision projections and vocab tables; int8: int8 for all of
+    them), made leaf by leaf on the device: random bytes for quantized
+    weights, N(0,1)*0.005+0.01 for every float leaf (scales, norms,
+    biases), so no bf16 copy of the model is ever staged."""
+    make = _random_layer_weight(mode)
+
     def floats(*shape):
         return _random_floats(gen, *shape, device=device)
 
-    def q4(*lead, out, inn):
-        return random_q4(gen, *lead, out=out, inn=inn, device=device)
+    def weight(*lead, out, inn):
+        return make(gen, *lead, out=out, inn=inn, device=device)
 
     vc, tc = cfg.vision, cfg.text
     d, inter = vc.hidden_size, vc.intermediate_size
     merge_dim = d * vc.merge_unit
     vision = {
-        "patch_embed": q4(out=d, inn=vc.patch_input_dim),
+        "patch_embed": weight(out=d, inn=vc.patch_input_dim),
         "blocks": [
             {
                 "norm1": floats(d), "norm2": floats(d),
-                "qkv": q4(out=3 * d, inn=d), "qkv_bias": floats(3 * d),
-                "proj": q4(out=d, inn=d), "proj_bias": floats(d),
+                "qkv": weight(out=3 * d, inn=d), "qkv_bias": floats(3 * d),
+                "proj": weight(out=d, inn=d), "proj_bias": floats(d),
                 "mlp": {
-                    "gate_proj": q4(out=inter, inn=d), "gate_bias": floats(inter),
-                    "up_proj": q4(out=inter, inn=d), "up_bias": floats(inter),
-                    "down_proj": q4(out=d, inn=inter), "down_bias": floats(d),
+                    "gate_proj": weight(out=inter, inn=d), "gate_bias": floats(inter),
+                    "up_proj": weight(out=inter, inn=d), "up_bias": floats(inter),
+                    "down_proj": weight(out=d, inn=inter), "down_bias": floats(d),
                 },
             }
             for _ in range(vc.depth)
         ],
         "merger": {
             "ln_q": floats(d),
-            "fc1": q4(out=merge_dim, inn=merge_dim), "fc1_bias": floats(merge_dim),
-            "fc2": q4(out=vc.out_hidden_size, inn=merge_dim),
+            "fc1": weight(out=merge_dim, inn=merge_dim), "fc1_bias": floats(merge_dim),
+            "fc2": weight(out=vc.out_hidden_size, inn=merge_dim),
             "fc2_bias": floats(vc.out_hidden_size),
         },
     }
     L, h, hd = tc.num_layers, tc.hidden_size, tc.head_dim_
     qkv_out = (tc.num_heads + 2 * tc.num_kv_heads) * hd
     vocab_rows = -(-tc.vocab_size // 512) * 512
+
+    def vocab():
+        if mode == "int4":
+            return weight(out=vocab_rows, inn=h)
+        return random_q8(gen, vocab_rows, tc.vocab_size, h, device)
+
     text = {
-        "embed_tokens": q4(out=vocab_rows, inn=h),
-        "lm_head": q4(out=vocab_rows, inn=h),
+        "embed_tokens": vocab(),
+        "lm_head": vocab(),
         "final_norm": floats(h),
         "layers_stacked": {
             "input_norm": floats(L, h), "post_attn_norm": floats(L, h),
-            "qkv_proj": q4(L, out=qkv_out, inn=h), "qkv_bias": floats(L, qkv_out),
-            "o_proj": q4(L, out=h, inn=tc.num_heads * hd),
+            "qkv_proj": weight(L, out=qkv_out, inn=h), "qkv_bias": floats(L, qkv_out),
+            "o_proj": weight(L, out=h, inn=tc.num_heads * hd),
             "mlp": {
-                "gateup_proj": q4(L, out=2 * tc.intermediate_size, inn=h),
-                "down_proj": q4(L, out=h, inn=tc.intermediate_size),
+                "gateup_proj": weight(L, out=2 * tc.intermediate_size, inn=h),
+                "down_proj": weight(L, out=h, inn=tc.intermediate_size),
             },
         },
     }
@@ -667,14 +699,16 @@ def _random_target_params(cfg: Qwen25VLConfig, gen: torch.Generator, device) -> 
 
 
 def build_target_engine(role: str, device, seed: int,
-                        settings: Optional[ServingSettings] = None) -> Engine:
-    """Qwen2.5-VL-7B at full width and depth with random int4 weights."""
+                        settings: Optional[ServingSettings] = None,
+                        quantization: str = "int4") -> Engine:
+    """Qwen2.5-VL-7B at full width and depth with random int4 or int8
+    weights."""
     device = torch.device(device)
     cfg = _byte_token_ids(Qwen25VLConfig.qwen2_5_vl_7b())
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = _random_target_params(cfg, gen, device)
-    logger.info(f"{role}: target-scale Qwen2.5-VL-7B (int4, random) on {device}")
+    params = _random_target_params(cfg, gen, device, quantization)
+    logger.info(f"{role}: target-scale Qwen2.5-VL-7B ({quantization}, random) on {device}")
     return Engine(f"target-{role}-qwen25vl-7b", cfg, params,
                   ByteTokenizer(vocab_size=cfg.text.vocab_size), device,
                   settings or ServingSettings())
@@ -701,15 +735,18 @@ def build_small_engine(role: str, device, seed: int, quantization: str = "none",
                        vocab_mode: str = "int4",
                        settings: Optional[ServingSettings] = None) -> Engine:
     """The small profile: random-normal weights, layers stacked and fused,
-    int4 text weights when ``quantization == "int4"``."""
+    int4 or int8 text weights (vocab tables by ``vocab_mode``) when
+    ``quantization`` says so; the vision tower stays float, as in the JAX
+    package's small profile."""
     device = torch.device(device)
     cfg = small_config()
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = init_params(cfg, gen, device)
     text = fuse_stacked_projections(stack_decoder_layers(params["text"]))
-    if quantization == "int4":
-        text = quantize_stacked_params(text, quantize_embeddings=True, vocab_mode=vocab_mode)
+    if quantization in ("int4", "int8"):
+        text = quantize_stacked_params(text, quantize_embeddings=True,
+                                       vocab_mode=vocab_mode, mode=quantization)
     elif quantization != "none":
         raise NotImplementedError(f"QUANTIZATION={quantization} is not ported yet")
     params["text"] = text
@@ -730,16 +767,18 @@ def random_q8(gen: torch.Generator, rows: int, out: int, inn: int, device) -> Qu
     return QuantizedWeight(q=q, scale=scale)
 
 
-def _random_text_params(cfg: DecoderConfig, gen: torch.Generator, device) -> Dict[str, Any]:
-    """A text decoder in its serving layout (stacked, fused; int4 layers,
-    int8 embedding and vocab head with rows padded to 512), made leaf by
-    leaf on the device like ``_random_target_params``."""
+def _random_text_params(cfg: DecoderConfig, gen: torch.Generator, device,
+                        mode: str = "int4") -> Dict[str, Any]:
+    """A text decoder in its serving layout (stacked, fused; int4 or int8
+    layers by ``mode``, int8 embedding and vocab head with rows padded to
+    512), made leaf by leaf on the device like ``_random_target_params``."""
     L, h, hd = cfg.num_layers, cfg.hidden_size, cfg.head_dim_
     qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
     rows = -(-cfg.vocab_size // 512) * 512
+    make = _random_layer_weight(mode)
 
-    def q4(*lead, out, inn):
-        return random_q4(gen, *lead, out=out, inn=inn, device=device)
+    def weight(*lead, out, inn):
+        return make(gen, *lead, out=out, inn=inn, device=device)
 
     def floats(*shape):
         return _random_floats(gen, *shape, device=device)
@@ -750,26 +789,28 @@ def _random_text_params(cfg: DecoderConfig, gen: torch.Generator, device) -> Dic
         "final_norm": floats(h),
         "layers_stacked": {
             "input_norm": floats(L, h), "post_attn_norm": floats(L, h),
-            "qkv_proj": q4(L, out=qkv_out, inn=h),
-            "o_proj": q4(L, out=h, inn=cfg.num_heads * hd),
+            "qkv_proj": weight(L, out=qkv_out, inn=h),
+            "o_proj": weight(L, out=h, inn=cfg.num_heads * hd),
             "mlp": {
-                "gateup_proj": q4(L, out=2 * cfg.intermediate_size, inn=h),
-                "down_proj": q4(L, out=h, inn=cfg.intermediate_size),
+                "gateup_proj": weight(L, out=2 * cfg.intermediate_size, inn=h),
+                "down_proj": weight(L, out=h, inn=cfg.intermediate_size),
             },
         },
     }
 
 
 def build_target_text_engine(role: str, device, seed: int,
-                             settings: Optional[ServingSettings] = None) -> Engine:
-    """Llama-3.1-8B at full width and depth: random int4 layers, int8
-    embedding and vocab head (128256 rows padded to 128512)."""
+                             settings: Optional[ServingSettings] = None,
+                             quantization: str = "int4") -> Engine:
+    """Llama-3.1-8B at full width and depth: random int4 or int8 layers,
+    int8 embedding and vocab head (128256 rows padded to 128512)."""
     device = torch.device(device)
     cfg = llama31_8b()
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = {"text": _random_text_params(cfg, gen, device)}
-    logger.info(f"{role}: target-scale Llama-3.1-8B (int4, int8 head, random) on {device}")
+    params = {"text": _random_text_params(cfg, gen, device, quantization)}
+    logger.info(f"{role}: target-scale Llama-3.1-8B ({quantization} layers, int8 head, "
+                f"random) on {device}")
     return Engine(f"target-{role}-llama31-8b", cfg, params,
                   ByteTokenizer(vocab_size=cfg.vocab_size), device,
                   settings or ServingSettings())
@@ -788,15 +829,16 @@ def build_small_text_engine(role: str, device, seed: int, quantization: str = "n
                             vocab_mode: str = "int4", config: Optional[DecoderConfig] = None,
                             settings: Optional[ServingSettings] = None) -> Engine:
     """The small text profile (or ``config``): random-normal weights, layers
-    stacked and fused, int4 layers and an int4/int8 vocab head when
-    ``quantization == "int4"``."""
+    stacked and fused, int4 or int8 layers and an int4/int8/none vocab head
+    when ``quantization`` says so."""
     device = torch.device(device)
     cfg = config or small_text_config()
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     text = fuse_stacked_projections(stack_decoder_layers(init_decoder_params(cfg, gen, device)))
-    if quantization == "int4":
-        text = quantize_stacked_params(text, quantize_embeddings=True, vocab_mode=vocab_mode)
+    if quantization in ("int4", "int8"):
+        text = quantize_stacked_params(text, quantize_embeddings=True,
+                                       vocab_mode=vocab_mode, mode=quantization)
     elif quantization != "none":
         raise NotImplementedError(f"QUANTIZATION={quantization} is not ported yet")
     return Engine(f"dev-{role}", cfg, {"text": text},
@@ -825,31 +867,30 @@ def build_engine(role: str, model_name: str, device, seed: int = 0) -> Engine:
             "KV_QUANTIZATION=int8 is not ported: the port stores bf16 KV where "
             "the reference would store int8, so it refuses the setting"
         )
-    if app_config.quantization not in ("none", "int4"):
-        raise NotImplementedError(f"QUANTIZATION={app_config.quantization} is not ported yet")
+    quant = app_config.quantization
     settings = ServingSettings.from_app_config()
     target = app_config.dev_profile == "target"
     vocab_mode = _vocab_mode(role)
     if role not in ("inspector", "auditor"):
         if not target:
-            return build_small_text_engine(role, device, seed, app_config.quantization,
-                                           vocab_mode, settings=settings)
-        if app_config.quantization != "int4" or vocab_mode != "int8":
+            return build_small_text_engine(role, device, seed, quant, vocab_mode,
+                                           settings=settings)
+        if quant not in ("int4", "int8") or vocab_mode != "int8":
             raise NotImplementedError(
-                "the target text profile is ported for int4 layers and an int8 vocab head")
-        return build_target_text_engine(role, device, seed, settings)
+                "the target text profile is ported for int4 or int8 layers with an "
+                f"int8 vocab head, not QUANTIZATION={quant} with a {vocab_mode} head")
+        return build_target_text_engine(role, device, seed, settings, quant)
     if not _is_qwen25(model_name):
         raise NotImplementedError(
             f"the port serves Qwen2.5-VL only among VLMs so far, not {model_name!r} ({role})"
         )
     if target:
-        if app_config.quantization != "int4" or vocab_mode != "int4":
+        if quant not in ("int4", "int8") or vocab_mode != quant:
             raise NotImplementedError(
-                "the target profile is ported for int4 layers and an int4 vocab head"
-            )
-        return build_target_engine(role, device, seed, settings)
-    return build_small_engine(role, device, seed, app_config.quantization,
-                              vocab_mode, settings)
+                "the target profile is ported for int4 or int8 layers with a vocab head "
+                f"of the same precision, not QUANTIZATION={quant} with a {vocab_mode} head")
+        return build_target_engine(role, device, seed, settings, quant)
+    return build_small_engine(role, device, seed, quant, vocab_mode, settings)
 
 
 def _maybe_attach_scheduler(role: str, engine: Engine) -> None:
@@ -865,8 +906,11 @@ _engine_lock = threading.Lock()
 
 
 def get_engine_backend(role: str, model_name: str, device, seed: int = 0) -> EngineBackend:
-    """The cached engine for (role, model, device), built on first use."""
-    key = (role, model_name, str(torch.device(device)), seed)
+    """The cached engine for (role, model, device, seed) and the settings
+    that decide its weights (profile, layer and vocab precision), built on
+    first use."""
+    key = (role, model_name, str(torch.device(device)), seed, app_config.dev_profile,
+           app_config.quantization, _vocab_mode(role))
     with _engine_lock:
         if key not in _engines:
             engine = build_engine(role, model_name, device, seed)
@@ -885,5 +929,8 @@ __all__ = [
     "build_target_engine",
     "build_target_text_engine",
     "get_engine_backend",
+    "random_q4",
+    "random_q8",
+    "random_q8_stack",
     "load_constraint_tables",
 ]

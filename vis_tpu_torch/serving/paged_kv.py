@@ -23,7 +23,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from vis_tpu.utils.logger import setup_logger
+from vis_tpu_torch.utils.logger import setup_logger
 
 logger = setup_logger(__name__, level="INFO", component="PAGED_KV")
 

@@ -40,7 +40,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from vis_tpu.utils.logger import setup_logger, span
+from vis_tpu_torch.utils.logger import setup_logger, span
 from vis_tpu_torch.models.common.decoder import (
     DecodeConstraint,
     DecoderConfig,
