@@ -11,7 +11,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernels: each kernel (A, B, C, D, E) against its plain PyTorch version
    at the shapes the main paths give it, with the tolerance stated, and
    both timed, beside the least time the card could take (bound) and, for
-   C, PyTorch's scaled_dot_product_attention on the same inputs;
+   C, PyTorch's scaled_dot_product_attention on the same inputs.  A
+   kernel's time is that of a run of launches captured into a CUDA graph
+   (``device_ms``), a plain version's that of a run of calls back to back
+   (``stream_ms``);
 4. reference: the small Qwen2.5-VL profile and the small Llama text
    profile, int4 and int8, on the card against the same engines on the CPU
    (prefill logits, a lookahead window, one batched paged decode chunk);
@@ -25,7 +28,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    from the scheduler;
 6. int8 slice: the same three requests under QUANTIZATION=int8 (int8
    layers, vocab tables and vision projections).  Kernels C, D and E must
-   have launched.
+   have launched;
+7. probes: the int4 probe tools' kernels (F, G, H, I, J, K, Q) against
+   their plain versions at the probes' full shapes (7B MLP stack, int4
+   head), with the tolerance stated, timed beside their bound and PyTorch's
+   int4 matmul (torch._weight_int4pack_mm) on the same weights; H with one
+   slab's gate and up swapped and K with its nibble order flipped must miss
+   their tolerance.  Then the three probe tools run every variant over the
+   full 28-layer stack, eagerly and as a replayed CUDA graph of one pass,
+   printing ms per pass and GB/s of weight; each of F-K and Q must have
+   launched there, and each variant's first layer from x0 must agree with
+   the variants that run its kernel on the same bytes (bit for bit) and
+   with the plain versions.
 
 Neither jax nor the JAX package (vis_tpu) can be imported here: the port
 stands alone.  The last line of standard output is {"ok": true, "device":
@@ -121,6 +135,12 @@ HEAD8 = (128512, 128256, 4096)
 # Kernel E's shapes: (hidden, inter, stacked layers, batch rows); Qwen's
 # decode windows run 8 rows, Llama's scheduler 3 slots.
 MLP8 = {"qwen": (3584, 18944, 28, (1, 8)), "llama": (4096, 14336, 8, (1, 3))}
+# The int4 probe tools: the 7B MLP stack (hidden, inter), the int4 head's
+# rows and their paddings, the fused MLP's slab rows, and the passes per timed
+# run and timed runs of each probe variant.
+PROBE_MLP = (3584, 18944)
+PROBE_HEAD, HEAD_BLOCKS, INTER_BLOCK = 152064, (512, 1024, 2048), 1184
+PROBE_STEPS, PROBE_REPEATS = 8, 2
 # H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and bf16 FLOP/s.
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
 
@@ -132,22 +152,54 @@ def bound(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def median_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median device time of fn() over CUDA events."""
+def device_ms(fn, calls: int, replays: int = 5) -> float:
+    """Device time of one fn(i), in ms: fn(0) .. fn(calls - 1) captured into
+    one CUDA graph, replayed ``replays`` times between CUDA events, the
+    median replay over ``calls``.  The wrappers' host time stays out of what
+    is timed, and i lets fn walk a stack so that each launch reads its
+    weight from device memory."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(2):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
+def stream_ms(fn, calls: int, warmup: int = 2) -> float:
+    """Time of one fn(i), in ms, for the plain versions: ``calls`` calls
+    back to back between one pair of CUDA events, over ``calls`` (each is
+    many kernels of device work, which hides the host's launches)."""
     import torch
 
     for i in range(warmup):
         fn(i)
-    times = []
-    for i in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(calls):
         fn(i)
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def phase_card() -> str:
@@ -212,23 +264,28 @@ def phase_kernels() -> dict:
                 if not err <= tol:
                     raise AssertionError(f"kernel A {name} B={rows} idx={idx}: {err} > {tol}")
                 worst_a = max(worst_a, err)
-            ms = median_ms(lambda i: qz.q4_matmul_stacked(
-                x, qz.QuantizedWeight4Pick(q, scale, i % LAYERS)), reps=56)
-            plain = median_ms(lambda i: qz.q4_matmul_plain(
-                x, q[i % LAYERS], scale[i % LAYERS]), reps=28)
+            ms = device_ms(lambda i: qz.q4_matmul_stacked(
+                x, qz.QuantizedWeight4Pick(q, scale, i % LAYERS)), 56)
+            plain = stream_ms(lambda i: qz.q4_matmul_plain(
+                x, q[i % LAYERS], scale[i % LAYERS]), 28)
             gbps = (q[0].numel() + scale[0].numel() * 4) / (ms * 1e-3) / 1e9
             times_a[(name, rows)] = (ms, plain)
             print(f"[A] {name:8s} B={rows}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of "
                   f"weight), plain {plain:.4f} ms")
+            if (name, rows) == ("gate_up", 8):
+                library_a = _library_int4(f"gate_up B={rows}", x, [
+                    (_split_values(q[i]), scale[i][:, 0], scale[i][:, 1]) for i in range(3)],
+                    tag="A")
         del w, q, scale
     out, inn = PROJECTIONS["gate_up"]
     bound_a = bound(out * inn // 2 + out * 2 * 4 + 8 * inn * 2 + 8 * out * 4, 2 * 8 * out * inn)
     print(f"[A] gate_up B=8 bound {bound_a[0]:.4f} ms ({bound_a[1]})")
     report["A"] = dict(err=worst_a, ms=times_a[("gate_up", 8)][0],
-                       plain_ms=times_a[("gate_up", 8)][1], bound=bound_a, library_ms=None,
-                       table=times_a)
+                       plain_ms=times_a[("gate_up", 8)][1], bound=bound_a,
+                       library_ms=library_a, table=times_a)
 
-    # B: the int4 vocab head, B = 1.
+    # B: the int4 vocab head, B = 1.  A and B are also timed against PyTorch's
+    # int4 matmul on the same weights (``_library_int4``).
     w = random_q4(gen, out=HEAD[0], inn=HEAD[1], device=dev)
     q, scale = w.q, w.scale
     x = torch.randn((1, HEAD[1]), generator=gen, device=dev).to(torch.bfloat16)
@@ -240,14 +297,16 @@ def phase_kernels() -> dict:
     print(f"[B] head {list(HEAD)} B=1: max|err| {err:.3e} <= tol {tol:.3e}")
     if not err <= tol:
         raise AssertionError(f"kernel B: {err} > {tol}")
-    ms = median_ms(lambda i: qz.q4_matmul(x, q, scale), reps=30)
-    plain = median_ms(lambda i: qz.q4_matmul_plain(x, q, scale), reps=10)
+    ms = device_ms(lambda i: qz.q4_matmul(x, q, scale), 30)
+    plain = stream_ms(lambda i: qz.q4_matmul_plain(x, q, scale), 10)
     gbps = (q.numel() + scale.numel() * 4) / (ms * 1e-3) / 1e9
     bound_b = bound(q.numel() + scale.numel() * 4 + HEAD[1] * 2 + HEAD[0] * 4,
                     2 * HEAD[0] * HEAD[1])
     print(f"[B] head B=1: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), plain {plain:.4f} ms, "
           f"bound {bound_b[0]:.4f} ms ({bound_b[1]})")
-    report["B"] = dict(err=err, ms=ms, plain_ms=plain, bound=bound_b, library_ms=None)
+    library_b = _library_int4("head B=1", x, [(_split_values(q), scale[:, 0], scale[:, 1])],
+                              tag="B")
+    report["B"] = dict(err=err, ms=ms, plain_ms=plain, bound=bound_b, library_ms=library_b)
     del w, q, scale
 
     # C: the vision tower's full-attention shape, non-causal, then causal.
@@ -286,9 +345,9 @@ def phase_kernels() -> dict:
                                      f"{miss} <= {tol_c}")
         del dropped
         worst_c = max(worst_c, err)
-        ms = median_ms(lambda i: fa.flash_attention(*qkv, lengths, causal=causal), reps=20)
-        plain = median_ms(lambda i: fa.flash_attention_reference(
-            *qkv, lengths, causal=causal), reps=10)
+        ms = device_ms(lambda i: fa.flash_attention(*qkv, lengths, causal=causal), 20)
+        plain = stream_ms(lambda i: fa.flash_attention_reference(
+            *qkv, lengths, causal=causal), 10)
         # Operations on the valid keys: every query row attends the n
         # valid keys (the causal case about half of them).
         flops = 4 * s * n * d * h * b * (0.5 if causal else 1.0)
@@ -305,7 +364,7 @@ def phase_kernels() -> dict:
     lib_err = (sdpa(q_t, k_t, v_t, attn_mask=keep).transpose(1, 2).float()
                - fa.flash_attention_reference(*qkv, lengths, causal=False).float()
                ).abs().max().item()
-    library = median_ms(lambda i: sdpa(q_t, k_t, v_t, attn_mask=keep), reps=20)
+    library = device_ms(lambda i: sdpa(q_t, k_t, v_t, attn_mask=keep), 20)
     print(f"[C] library scaled_dot_product_attention (non-causal, key mask): {library:.4f} ms "
           f"(max|err| vs plain {lib_err:.3e})")
     report["C"] = dict(err=worst_c, ms=times_c[False][0], plain_ms=times_c[False][1],
@@ -334,8 +393,8 @@ def phase_kernels() -> dict:
         if not (err <= tol and pad == 0.0):
             raise AssertionError(f"kernel D B={batch}: err {err} > {tol} or padded {pad}")
         worst_d = max(worst_d, err)
-        ms = median_ms(lambda i: qz.q8_matmul(x, w.q, w.scale), reps=30)
-        plain = median_ms(lambda i: qz.q8_matmul_plain(x, w.q, w.scale), reps=10)
+        ms = device_ms(lambda i: qz.q8_matmul(x, w.q, w.scale), 30)
+        plain = stream_ms(lambda i: qz.q8_matmul_plain(x, w.q, w.scale), 10)
         gbps = (w.q.numel() + w.scale.numel() * 4) / (ms * 1e-3) / 1e9
         print(f"[D] head B={batch}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), "
               f"plain {plain:.4f} ms")
@@ -397,9 +456,9 @@ def _kernel_e(gen, dev) -> dict:
                 if not miss > tol_e * scale:
                     raise AssertionError(f"kernel E check misses swapped gate/up: {miss}")
                 worst = max(worst, err)
-            ms = median_ms(lambda i: qz.fused_swiglu_mlp(x, *pick(i)), reps=2 * layers)
-            plain = median_ms(lambda i: qz.fused_swiglu_mlp_plain(
-                x, *(a for w in pick(i) for a in (w.q, w.scale))), reps=layers)
+            ms = device_ms(lambda i: qz.fused_swiglu_mlp(x, *pick(i)), 2 * layers)
+            plain = stream_ms(lambda i: qz.fused_swiglu_mlp_plain(
+                x, *(a for w in pick(i) for a in (w.q, w.scale))), layers)
             weight = 3 * hidden * inter + 2 * inter * 4 + hidden * 4
             limit = bound(weight + 2 * rows * hidden * 2, 6 * rows * hidden * inter)
             print(f"[E] {model} B={rows}: kernel {ms:.4f} ms ({weight / (ms * 1e-3) / 1e9:.0f} "
@@ -736,6 +795,405 @@ def _release_engines() -> None:
     torch.cuda.empty_cache()
 
 
+def _hold_probe(label: str, got, want, tol: float) -> float:
+    """Finite, and max|got - want| <= tol; returns the error."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    print(f"[probes] {label}: max|err| {err:.3e} <= tol {tol:.3e}")
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        raise AssertionError(f"probe kernel {label}: {err} > {tol} or non-finite")
+    return err
+
+
+def _miss_probe(label: str, broken, want, tol: float) -> None:
+    """A deliberately broken run must miss the tolerance."""
+    miss = (broken.float() - want.float()).abs().max().item()
+    print(f"[probes] {label}: max|err| {miss:.3e} > tol {tol:.3e}")
+    if not miss > tol:
+        raise AssertionError(f"probe check misses a broken kernel ({label}): {miss} <= {tol}")
+
+
+def _timed_probe(key: str, shape: str, kernel, plain, nbytes: int, flops: int,
+                 calls: int) -> tuple:
+    """Kernel and plain times (``device_ms``, ``stream_ms``; fn(i) walks the
+    stack with i) and the bound for ``nbytes`` and ``flops``."""
+    ms = device_ms(kernel, calls)
+    plain_ms = stream_ms(plain, max(4, calls // 4))
+    limit = bound(nbytes, flops)
+    print(f"[probes] {key} {shape}: kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), "
+          f"plain {plain_ms:.4f} ms, bound {limit[0]:.4f} ms ({limit[1]})")
+    return ms, plain_ms, limit
+
+
+# PyTorch's int4 matmul, torch._weight_int4pack_mm: scales in groups of 256
+# inputs (3584 / 2 and 18944 / 2 are multiples), weights tiled 8 k-tiles deep.
+INT4PACK_GROUP, INT4PACK_TILES = 256, 8
+
+
+def _int4pack(values, s_lo, s_hi) -> tuple:
+    """torch._weight_int4pack_mm's operands for an int4 weight: ``values``
+    [O, I] u8 in [0, 15], the weight being (value - 8) * s with s_lo [O] over
+    the first I/2 inputs and s_hi [O] over the rest.  Its packing holds input
+    2k in the high nibble and 2k + 1 in the low; its scales are bf16, one a
+    row and group of inputs, beside zero points of 0 (it computes
+    (value - 8) * scale + zero)."""
+    import torch
+
+    packed = ((values[:, 0::2] << 4) | values[:, 1::2]).contiguous()
+    weight = torch._convert_weight_to_int4pack(packed, INT4PACK_TILES)
+    groups = values.shape[1] // INT4PACK_GROUP
+    scales = torch.cat([s_lo[None].expand(groups // 2, -1), s_hi[None].expand(groups // 2, -1)])
+    return weight, torch.stack([scales, torch.zeros_like(scales)], dim=-1).to(
+        torch.bfloat16).contiguous()
+
+
+def _library_int4(label: str, inp, weights, calls: int = 30, tag: str = "probes") -> float:
+    """The time (``device_ms``) of torch._weight_int4pack_mm on x ``inp``
+    over ``weights``, a list of (values, s_lo, s_hi) as ``_int4pack`` takes
+    them, walked in turn.  Each weight is converted to the library's layout
+    once, outside the timing, as C's library call gets its layout.  Its
+    output on the first weight is held to the exact product: the library
+    rounds the scales, each dequantized weight and the output to bf16, so
+    max|err| <= 2^-7 * max_o sum_i |x_i w_oi| + 2^-7 * max|y|."""
+    import torch
+
+    packs = [_int4pack(*w) for w in weights]
+    values, s_lo, s_hi = weights[0]
+    half = values.shape[1] // 2
+    w = values.float() - 8.0
+    w[:, :half] *= s_lo[:, None]
+    w[:, half:] *= s_hi[:, None]
+    want = inp.float() @ w.T
+    room = (inp.float().abs() @ w.abs().T).max().item()
+    del w
+    got = torch._weight_int4pack_mm(inp, packs[0][0], INT4PACK_GROUP, packs[0][1])
+    err = (got.float() - want).abs().max().item()
+    tol = 2.0 ** -7 * (room + want.abs().max().item())
+    print(f"[{tag}] library torch._weight_int4pack_mm {label}: max|err| vs the exact "
+          f"product {err:.3e} <= tol {tol:.3e}")
+    if not (tuple(got.shape) == tuple(want.shape) and err <= tol):
+        raise AssertionError(f"library int4 matmul {label}: {err} > {tol} or shape "
+                             f"{tuple(got.shape)}")
+    ms = device_ms(lambda i: torch._weight_int4pack_mm(
+        inp, packs[i % len(packs)][0], INT4PACK_GROUP, packs[i % len(packs)][1]), calls)
+    print(f"[{tag}] library torch._weight_int4pack_mm {label}: {ms:.4f} ms")
+    return ms
+
+
+def _split_values(q):
+    """A split-half packed int4 weight q [O, I/2] as values [O, I] in [0, 15]."""
+    import torch
+
+    return torch.cat([q & 15, q >> 4], dim=1)
+
+
+def _probe_kernels(gen, dev) -> dict:
+    """F, G, H, I, J, K and Q against their plain versions at the probes' full
+    shapes, B = 1 as the probes run, random int4 bytes and scales
+    N(0,1)*0.005+0.01 (lo and hi differ).  The exact-arithmetic kernels (F,
+    I, J, K) differ from their plain versions in the order of the f32 sums:
+    max|err| <= 1e-4 * max|y|; padded head rows are exactly 0; K with the
+    nibbles of each byte swapped must miss.  G and Q run on kernel A: held to
+    its plain version as phase 3 holds A (1e-3 * max|y|) and to the probes'
+    exact arithmetic within A's bf16 weight rounding, 2^-8 * max_o sum_i
+    |x_i w_oi| + 1e-4 * max|y|.  H rounds act to bf16 inside: 2^-12 * max_o
+    sum_i |act_i w_oi| + 1e-4 * max|y| (a flip of one act value in 32), which
+    the kernel with slab 0's gate and up swapped must exceed; two runs must
+    agree bit for bit.  Timing walks the stack's layers, so each launch
+    reads its weight from device memory.  Every row but H (a whole MLP, no
+    one call) also times torch._weight_int4pack_mm on its weights."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+
+    hidden, inter = PROBE_MLP
+    layers = LAYERS
+
+    def rand_q(*shape):
+        return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+
+    def rand_s(*shape):
+        return 0.01 + 0.005 * torch.randn(shape, generator=gen, device=dev)
+
+    gu_q, gu_s = rand_q(layers, 2 * inter, hidden // 2), rand_s(layers, 2, 2 * inter)
+    dn_q, dn_s = rand_q(layers, hidden, inter // 2), rand_s(layers, 2, hidden)
+    x = torch.randn((1, hidden), generator=gen, device=dev).to(torch.bfloat16)
+    a = torch.randn((1, inter), generator=gen, device=dev).to(torch.bfloat16)
+    gu_bytes, dn_bytes = gu_q[0].numel(), dn_q[0].numel()
+    io_gu = gu_bytes + 2 * inter * 2 * 4 + hidden * 2 + 2 * inter * 4
+    io_dn = dn_bytes + hidden * 2 * 4 + inter * 2 + hidden * 4
+    report = {}
+
+    # F: the folded arithmetic on a layer picked by index (gate_up).
+    err = 0.0
+    for idx in (0, layers - 1):
+        want = qz.q4_matmul_folded_plain(x, gu_q[idx], gu_s[idx])
+        err = max(err, _hold_probe(f"F gate_up idx={idx}", qz.q4_matmul_stacked_folded(
+            x, gu_q, gu_s, idx), want, 1e-4 * want.abs().max().item()))
+    times = _timed_probe("F", f"gate_up [{2 * inter}, {hidden}] B=1", lambda i: qz.q4_matmul_stacked_folded(
+        x, gu_q, gu_s, i % layers), lambda i: qz.q4_matmul_folded_plain(
+        x, gu_q[i % layers], gu_s[i % layers]), io_gu, 2 * 2 * inter * hidden, 56)
+    # One library yardstick a weight: F, G and J take x through gu_q, Q a
+    # through dn_q.
+    library = {name: _library_int4(f"{name} [{q.shape[1]}, {2 * q.shape[2]}] B=1", inp, [
+        (_split_values(q[i]), s[i][0], s[i][1]) for i in range(3)])
+        for name, q, s, inp in (("gate_up", gu_q, gu_s, x), ("down", dn_q, dn_s, a))}
+    report["F"] = dict(err=err, ms=times[0], plain_ms=times[1], bound=times[2],
+                       library_ms=library["gate_up"])
+
+    # G (gate_up) and Q (down): kernel A on the probes' layout, scales [L, O, 2].
+    for key, q, s, inp, io, out in (("G", gu_q, gu_s, x, io_gu, 2 * inter),
+                                    ("Q", dn_q, dn_s, a, io_dn, hidden)):
+        rows = s.transpose(1, 2).contiguous()
+        name = "gate_up" if key == "G" else "down"
+        err = 0.0
+        for idx in (0, layers - 1):
+            got = qz.q4_matmul_stacked(inp, qz.QuantizedWeight4Pick(q, rows, idx))
+            want = qz.q4_matmul_plain(inp, q[idx], rows[idx])
+            err = max(err, _hold_probe(f"{key} {name} idx={idx} (kernel A)", got, want,
+                                       1e-3 * want.abs().max().item()))
+            exact = qz.q4_matmul_folded_plain(inp, q[idx], s[idx])
+            weights = qz.unpack_int4(q[idx], rows[idx], torch.float32)
+            room = (inp.float().abs() @ weights.abs().T).max().item()
+            _hold_probe(f"{key} {name} idx={idx} against the probe's exact arithmetic", got,
+                        exact, 2.0 ** -8 * room + 1e-4 * exact.abs().max().item())
+            del weights
+        shape = f"{name} [{out}, {inp.shape[1]}] B=1"
+        times = _timed_probe(key, shape, lambda i: qz.q4_matmul_stacked(
+            inp, qz.QuantizedWeight4Pick(q, rows, i % layers)), lambda i: qz.q4_matmul_plain(
+            inp, q[i % layers], rows[i % layers]), io, 2 * out * inp.shape[1], 56)
+        report[key] = dict(err=err, ms=times[0], plain_ms=times[1], bound=times[2],
+                           library_ms=library[name])
+
+    # J: one folded weight, gate_up (the row) and down.
+    err = 0.0
+    for name, q, s, inp, io, out in (("down", dn_q, dn_s, a, io_dn, hidden),
+                                     ("gate_up", gu_q, gu_s, x, io_gu, 2 * inter)):
+        want = qz.q4_matmul_folded_plain(inp, q[0], s[0])
+        err = max(err, _hold_probe(f"J {name}", qz.q4_matmul_folded(inp, q[0], s[0]), want,
+                                   1e-4 * want.abs().max().item()))
+        times = _timed_probe("J", f"{name} [{out}, {inp.shape[1]}] B=1",
+                             lambda i: qz.q4_matmul_folded(inp, q[i % layers], s[i % layers]),
+                             lambda i: qz.q4_matmul_folded_plain(inp, q[i % layers],
+                                                                 s[i % layers]),
+                             io, 2 * out * inp.shape[1], 56)
+    report["J"] = dict(err=err, ms=times[0], plain_ms=times[1], bound=times[2],
+                       library_ms=library["gate_up"])
+
+    # H: the fused slab MLP on two layers of the probe's repack.
+    slabs = qz.repack_slabs(gu_q[:2], gu_s[:2], dn_q[:2], dn_s[:2], INTER_BLOCK)
+    del gu_q, gu_s, dn_q, dn_s
+    err = 0.0
+    for idx in (0, 1):
+        want = qz.q4_fused_mlp_slab_plain(x, *slabs, idx)
+        act = qz.q4_slab_act_plain(x, slabs[0][idx], slabs[1][idx]).float()
+        weights = torch.cat([qz.unpack_int4(q, s.T, torch.float32)
+                             for q, s in zip(slabs[2][idx], slabs[3][idx])], dim=1)
+        tol = 2.0 ** -12 * (act.abs() @ weights.abs().T).max().item() + \
+            1e-4 * want.abs().max().item()
+        del act, weights
+        got = qz.q4_fused_mlp_slab(x, *slabs, idx)
+        err = max(err, _hold_probe(f"H layer {idx}", got, want, tol))
+        if not torch.equal(got, qz.q4_fused_mlp_slab(x, *slabs, idx)):
+            raise AssertionError("probe kernel H: two runs differ")
+        gq2, gs2 = slabs[0].clone(), slabs[1].clone()
+        bi = INTER_BLOCK
+        gq2[idx, 0] = torch.cat([gq2[idx, 0, bi:], gq2[idx, 0, :bi]])
+        gs2[idx, 0] = torch.cat([gs2[idx, 0, :, bi:], gs2[idx, 0, :, :bi]], dim=1)
+        _miss_probe(f"H layer {idx}, slab 0 gate/up swapped", qz.q4_fused_mlp_slab(
+            x, gq2, gs2, *slabs[2:], idx), want, tol)
+        del gq2, gs2
+    weight = sum(t[0].numel() * t.element_size() for t in slabs)
+    times = _timed_probe("H", "one layer H 3584 I 18944 (16 slabs of 1184) B=1",
+                         lambda i: qz.q4_fused_mlp_slab(x, *slabs, i % 2),
+                         lambda i: qz.q4_fused_mlp_slab_plain(x, *slabs, i % 2),
+                         weight + hidden * 2 + hidden * 4,
+                         2 * 3 * hidden * inter, 40)
+    report["H"] = dict(err=err, ms=times[0], plain_ms=times[1], bound=times[2], library_ms=None)
+    del slabs
+
+    # K: signed int4, adjacent nibbles, two layers each so the timing walks.
+    err = 0.0
+    for name, out, inn in (("down", hidden, inter), ("gate_up", 2 * inter, hidden)):
+        q = torch.stack([qz.pack_int4_adjacent(torch.randint(
+            -7, 8, (out, inn), generator=gen, device=dev, dtype=torch.int8)) for _ in range(2)])
+        s = rand_s(2, 1, out)
+        inp = torch.randn((1, inn), generator=gen, device=dev).to(torch.bfloat16)
+        want = qz.i4_matmul_plain(inp, q[0], s[0])
+        tol = 1e-4 * want.abs().max().item()
+        err = max(err, _hold_probe(f"K {name}", qz.i4_matmul(inp, q[0], s[0]), want, tol))
+        _miss_probe(f"K {name}, nibble order flipped", qz.i4_matmul(
+            inp, (q[0] >> 4) | (q[0] << 4), s[0]), want, tol)
+        times = _timed_probe("K", f"{name} [{out}, {inn}] B=1",
+                             lambda i: qz.i4_matmul(inp, q[i % 2], s[i % 2]),
+                             lambda i: qz.i4_matmul_plain(inp, q[i % 2], s[i % 2]),
+                             q[0].numel() + out * 4 + inn * 2 + out * 4, 2 * out * inn, 56)
+        # The library's unsigned value is w + 8, both halves at the row's scale.
+        library_k = _library_int4(f"K {name} [{out}, {inn}] B=1", inp, [
+            ((qz.unpack_int4_adjacent(q[i]).to(torch.int16) + 8).to(torch.uint8), s[i][0],
+             s[i][0]) for i in range(2)])
+    report["K"] = dict(err=err, ms=times[0], plain_ms=times[1], bound=times[2],
+                       library_ms=library_k)
+    del q, s
+
+    # I: the int4 head through the folded kernel, padded as the probe pads it.
+    hq, hs = rand_q(PROBE_HEAD, hidden // 2), rand_s(2, PROBE_HEAD)
+    err, table = 0.0, {}
+    for block in HEAD_BLOCKS:
+        pad = -PROBE_HEAD % block
+        q = torch.nn.functional.pad(hq, (0, 0, 0, pad)) if pad else hq
+        s = torch.nn.functional.pad(hs, (0, pad)) if pad else hs
+        got = qz.q4_matmul_folded(x, q, s)
+        want = qz.q4_matmul_folded_plain(x, q, s)
+        err = max(err, _hold_probe(f"I head pad {block} rows={q.shape[0]}", got, want,
+                                   1e-4 * want.abs().max().item()))
+        padded = got[:, PROBE_HEAD:].abs().max().item() if pad else 0.0
+        print(f"[probes] I head pad {block}: padded rows max|y| {padded} == 0")
+        if padded != 0.0:
+            raise AssertionError(f"probe kernel I: padded rows give {padded}")
+        table[block] = _timed_probe(
+            "I", f"head [{q.shape[0]}, {hidden}] B=1", lambda i: qz.q4_matmul_folded(x, q, s),
+            lambda i: qz.q4_matmul_folded_plain(x, q, s),
+            hq.numel() + PROBE_HEAD * 2 * 4 + hidden * 2 + PROBE_HEAD * 4,
+            2 * PROBE_HEAD * hidden, 30)
+        del q, s
+    ms, plain_ms, limit = table[HEAD_BLOCKS[0]]
+    library_i = _library_int4(f"head [{PROBE_HEAD}, {hidden}] B=1", x,
+                              [(_split_values(hq), hs[0], hs[1])])
+    report["I"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound=limit, library_ms=library_i,
+                       table=table)
+    del hq, hs
+    torch.cuda.empty_cache()
+    return report
+
+
+# Which probe variant runs which TPU kernel, through which wrapper:
+# kernel -> (probe tool, result key(s), wrapper).
+PROBE_PATHS = {
+    "F": ("probe_stacked_fused", ("E",), "q4_matmul_stacked_folded"),
+    "G": ("probe_stacked_fused", ("D",), "q4_matmul_stacked"),
+    "H": ("probe_stacked_fused", ("F",), "q4_fused_mlp_slab"),
+    "I": ("probe_stacked_fused", tuple(f"H{b}" for b in HEAD_BLOCKS), "q4_matmul_folded"),
+    "J": ("probe_unpack", ("B",), "q4_matmul_folded"),
+    "K": ("probe_unpack", ("C",), "i4_matmul"),
+    "Q": ("probe_scan_slice", ("D",), "q4_matmul_stacked"),
+}
+
+
+# Probe variants that run one kernel on the same bytes from the same x0:
+# their first layers must agree bit for bit.  Kernels A and B share one row
+# function, as do the folded entries; every tool draws its int4 stack first
+# from the seed, so all of them hold the same bytes.
+SAME_LAYER = {
+    "kernel A and B": [("probe_scan_slice", k) for k in "ABCD"]
+    + [("probe_unpack", "A"), ("probe_stacked_fused", "D")],
+    "folded": [("probe_unpack", "B"), ("probe_stacked_fused", "E")],
+    "folded head": [("probe_stacked_fused", f"H{b}") for b in HEAD_BLOCKS],
+}
+
+
+def _check_probe_layers(results) -> None:
+    """The probes time a chain, not a model: from their x0 (0.01) through
+    random nibbles (mean bias -0.5) at uniform scales, the residual grows
+    every layer and overflows within a pass, on the TPU as here, so a pass's
+    output is no value to check.  Its first layer is: each variant's must be
+    finite, agree bit for bit with the variants of ``SAME_LAYER``, and
+    (kernels A/B, folded, H, K) agree with the same layer through the plain
+    versions on the same seed's weights within 2^-6 * max|h| (the sums in
+    another order can move h's bf16 rounding, or an act's, by one step, at
+    most 2^-7 * |h|)."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.tools import _probe, probe_unpack
+
+    hidden, inter = PROBE_MLP
+    layer = {(tool, key): r["layer"] for tool, by_key in results.items()
+             for key, r in by_key.items() if "layer" in r}
+    for (tool, key), h in layer.items():
+        if tuple(h.shape) != (1, hidden) or not bool(torch.isfinite(h).all()):
+            raise AssertionError(f"{tool} {key}: first layer {tuple(h.shape)} or non-finite")
+    for name, members in SAME_LAYER.items():
+        for member in members[1:]:
+            if not torch.equal(layer[member], layer[members[0]]):
+                raise AssertionError(f"probe {member} first layer differs from {members[0]}")
+        print(f"[probes] first layer, {name}: {len(members)} variants bit-equal")
+    gen = _probe.generator(DEVICE, SEED)
+    stack = _probe.int4_stack(gen, hidden, inter, LAYERS)
+    gu4, gs4, dn4, ds4 = probe_unpack.signed_stack(gen, hidden, inter, LAYERS)
+    x0 = _probe.first_input(DEVICE, hidden)
+
+    def plain_layer(matmul, gu, gs, dn, ds):
+        return _probe.residual(x0, matmul(_probe.swiglu(matmul(x0, gu, gs)), dn, ds))
+
+    folded = plain_layer(qz.q4_matmul_folded_plain, stack.gu_q[0], stack.gu_s[0],
+                         stack.dn_q[0], stack.dn_s[0])
+    wants = {
+        ("probe_scan_slice", "A"): plain_layer(
+            qz.q4_matmul_plain, stack.gu_q[0], stack.gu_s[0].T.contiguous(), stack.dn_q[0],
+            stack.dn_s[0].T.contiguous()),
+        ("probe_unpack", "B"): folded,
+        # The repack equals the original under the probe's uniform scales.
+        ("probe_stacked_fused", "F"): folded,
+        ("probe_unpack", "C"): plain_layer(qz.i4_matmul_plain, gu4[0], gs4[0], dn4[0], ds4[0]),
+    }
+    del stack, gu4, gs4, dn4, ds4
+    for (tool, key), want in wants.items():
+        got = layer[(tool, key)]
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2.0 ** -6 * want.float().abs().max().item()
+        print(f"[probes] first layer, {tool} {key} against the plain versions: max|err| "
+              f"{err:.3e} <= tol {tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"probe {tool} {key} first layer: {err} > {tol}")
+
+
+def phase_probes() -> tuple:
+    """Phase 7: the probe kernels' checks, then every variant of the three
+    probe tools over the full 7B MLP stack, with nothing caught.  Every
+    wrapper's count is set to 0 just before the tools run and read just
+    after; returns the kernel report and each probe kernel's launches."""
+    import importlib
+
+    import torch
+
+    from vis_tpu_torch.tools import _probe
+
+    start = time.perf_counter()
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    report = _probe_kernels(gen, dev)
+    for fn in _probe.WRAPPERS:
+        fn.launches = 0
+    results = {}
+    for tool, variants in (("probe_scan_slice", "ABCD"), ("probe_unpack", "ABCDE"),
+                           ("probe_stacked_fused", "DEFH")):
+        print(f"[probes] python -m vis_tpu_torch.tools.{tool} {variants} "
+              f"(steps {PROBE_STEPS}, best of {PROBE_REPEATS})", flush=True)
+        module = importlib.import_module(f"vis_tpu_torch.tools.{tool}")
+        results[tool] = module.run(variants, DEVICE, steps=PROBE_STEPS, repeats=PROBE_REPEATS,
+                                   seed=SEED)
+        torch.cuda.empty_cache()
+    totals = _probe.launch_counts()
+    _check_probe_layers(results)
+    launches = {k: sum(results[tool][key]["launches"].get(wrapper, 0) for key in keys)
+                for k, (tool, keys, wrapper) in PROBE_PATHS.items()}
+    print(f"[probes] wrapper launches during the probe tools: {totals}")
+    print(f"[probes] launches by TPU kernel: {launches}")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"probe kernel {k} never launched on the probe tools' path")
+    summary = {tool: {key: {f: r[f] for f in ("graph_ms", "eager_ms", "graph_gbps",
+                                               "eager_gbps", "per")}
+                      for key, r in by_key.items()} for tool, by_key in results.items()}
+    print(f"[probes] summary {json.dumps(summary)}")
+    print(f"[probes] phase 7 took {time.perf_counter() - start:.1f} s")
+    return report, launches
+
+
 KERNELS = {  # key: (wrapper, source, the TPU kernel it replaces)
     "A": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
           "vis_tpu/ops/quantized.py:453"),
@@ -745,6 +1203,18 @@ KERNELS = {  # key: (wrapper, source, the TPU kernel it replaces)
     "D": ("q8_matmul", "vis_tpu_torch/csrc/q8_matmul.cu", "vis_tpu/ops/quantized.py:74"),
     "E": ("fused_swiglu_mlp", "vis_tpu_torch/csrc/q8_swiglu.cu",
           "vis_tpu/ops/quantized.py:164"),
+    "F": ("q4_matmul_stacked_folded", "vis_tpu_torch/csrc/q4_matmul.cu",
+          "tools/probe_stacked_fused.py:59"),
+    "G": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
+          "tools/probe_stacked_fused.py:108"),
+    "H": ("q4_fused_mlp_slab", "vis_tpu_torch/csrc/q4_fused_mlp.cu",
+          "tools/probe_stacked_fused.py:130"),
+    "I": ("q4_matmul_folded", "vis_tpu_torch/csrc/q4_matmul.cu",
+          "tools/probe_stacked_fused.py:376"),
+    "J": ("q4_matmul_folded", "vis_tpu_torch/csrc/q4_matmul.cu", "tools/probe_unpack.py:55"),
+    "K": ("i4_matmul", "vis_tpu_torch/csrc/i4_matmul.cu", "tools/probe_unpack.py:105"),
+    "Q": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
+          "tools/probe_scan_slice.py:66"),
 }
 
 
@@ -765,9 +1235,13 @@ def main() -> int:
     _release_engines()
     int8 = phase_slice("int8 slice", INT8_PROFILE, "CDE")
     _release_engines()
+    probe_kernels, probe_launches = phase_probes()
+    kernels.update(probe_kernels)
+    launches = {k: int4[k] + int8[k] for k in int4}
+    launches.update(probe_launches)
     rows = [
-        {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": int4[k] + int8[k], "max_abs_err": kernels[k]["err"],
+        {"name": f"{k}: {name}", "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches[k], "max_abs_err": kernels[k]["err"],
          "ms": kernels[k]["ms"], "plain_ms": kernels[k]["plain_ms"],
          "bound_ms": kernels[k]["bound"][0], "bound_by": kernels[k]["bound"][1],
          "library_ms": kernels[k]["library_ms"]}

@@ -20,7 +20,8 @@ KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n for n in ("quantized.py", "
 FORBIDDEN_CALLS = {"scaled_dot_product_attention", "compile", "multi_head_attention_forward",
                    "_scaled_dot_product_flash_attention", "_scaled_dot_product_efficient_attention"}
 WRAPPERS = ("q4_matmul", "q4_matmul_stacked", "flash_attention", "q8_matmul",
-            "fused_swiglu_mlp")
+            "fused_swiglu_mlp", "q4_matmul_folded", "q4_matmul_stacked_folded", "i4_matmul",
+            "q4_fused_mlp_slab")
 
 
 def _imports(path):

@@ -341,11 +341,27 @@ def case_boundaries(inp):
             qz.fused_swiglu_mlp(x, qz.QuantizedWeight(gu8, gus), qz.QuantizedWeight(dn8, dns)),
             qz.fused_swiglu_mlp_plain(x, gu8, gus, dn8, dns)),
     }
-    launches = {"q4_matmul": qz.q4_matmul.launches,
-                "q4_matmul_stacked": qz.q4_matmul_stacked.launches,
-                "flash_attention": fa.flash_attention.launches,
-                "q8_matmul": qz.q8_matmul.launches,
-                "fused_swiglu_mlp": qz.fused_swiglu_mlp.launches}
+    # The probe tools' wrappers: scales [2, O] / [L, 2, O] / [1, O], and
+    # one layer of slabs of 32 intermediate rows (hidden 64, inter 64).
+    s2 = torch.rand((3, 2, 64), generator=gen) * 0.01
+    i4 = torch.randint(0, 256, (48, 32), generator=gen, dtype=torch.uint8)
+    slabs = qz.repack_slabs(torch.randint(0, 256, (2, 128, 32), generator=gen, dtype=torch.uint8),
+                            torch.rand((2, 2, 128), generator=gen) * 0.01,
+                            torch.randint(0, 256, (2, 64, 32), generator=gen, dtype=torch.uint8),
+                            torch.rand((2, 2, 64), generator=gen) * 0.01, 32)
+    same.update({
+        "q4_matmul_folded": torch.equal(qz.q4_matmul_folded(x, q[1], s2[1]),
+                                        qz.q4_matmul_folded_plain(x, q[1], s2[1])),
+        "q4_matmul_stacked_folded": torch.equal(qz.q4_matmul_stacked_folded(x, q, s2, 2),
+                                                qz.q4_matmul_folded_plain(x, q[2], s2[2])),
+        "i4_matmul": torch.equal(qz.i4_matmul(x, i4, s8[None]), qz.i4_matmul_plain(x, i4, s8[None])),
+        "q4_fused_mlp_slab": torch.equal(qz.q4_fused_mlp_slab(x, *slabs, 1),
+                                         qz.q4_fused_mlp_slab_plain(x, *slabs, 1)),
+    })
+    launches = {name: getattr(qz, name).launches for name in (
+        "q4_matmul", "q4_matmul_stacked", "q8_matmul", "fused_swiglu_mlp", "q4_matmul_folded",
+        "q4_matmul_stacked_folded", "i4_matmul", "q4_fused_mlp_slab")}
+    launches["flash_attention"] = fa.flash_attention.launches
     try:
         port_agents.install("cuda")
         install_error = ""
@@ -358,6 +374,70 @@ def case_boundaries(inp):
         "install_error": np.array(install_error),
         "cuda_available": np.array(torch.cuda.is_available()),
     }
+
+
+def _slab_bound(x, gq2, gs2, dq2, ds2, idx):
+    """max_o sum_i |act_i * w_oi| for probe kernel H on layer ``idx``: act
+    from the plain version, w the down weight as the slab layout's scales
+    apply it."""
+    from vis_tpu_torch.ops import quantized as qz
+
+    act = qz.q4_slab_act_plain(x, gq2[idx], gs2[idx]).to(torch.float32)
+    w = torch.cat([qz.unpack_int4(dq, ds.T, torch.float32)
+                   for dq, ds in zip(dq2[idx], ds2[idx])], dim=1)
+    return (act.abs() @ w.abs().T).max().item()
+
+
+def case_probes(inp):
+    """The int4 probe tools' counterparts on the CPU (plain versions): the
+    folded pair (F, I, J), kernel A on the probes' layout (G, Q), signed
+    int4 (K), the fused slab MLP (H), repack_slabs, pack_int4_adjacent, the
+    fused-vs-unfused check with equal and unequal down scales, and each
+    probe module run end to end at a tiny shape."""
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.tools import probe_scan_slice, probe_stacked_fused, probe_unpack
+    from vis_tpu_torch.tools._probe import swiglu
+
+    out = {}
+    gu_q, gu_s, dn_q, dn_s = (_t(inp[k]) for k in ("gu_q", "gu_s", "dn_q", "dn_s"))
+    slabs = tuple(_t(inp[f"jax_slab/{k}"]) for k in ("gq2", "gs2", "dq2", "ds2"))
+    bi = int(inp["inter_block"])
+    for rows in inp["rows"].tolist():
+        x, a = _t(inp[f"x{rows}"]), _t(inp[f"a{rows}"])
+        out[f"F/{rows}"] = _np(qz.q4_matmul_stacked_folded(x, gu_q, gu_s, 1))
+        out[f"G/{rows}"] = _np(qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(
+            gu_q, gu_s.transpose(1, 2).contiguous(), 1)))
+        out[f"Q/{rows}"] = _np(qz.q4_matmul_stacked(a, qz.QuantizedWeight4Pick(
+            dn_q, dn_s.transpose(1, 2).contiguous(), 1)))
+        out[f"J/{rows}"] = _np(qz.q4_matmul_folded(a, dn_q[0], dn_s[0]))
+        out[f"I/{rows}"] = _np(qz.q4_matmul_folded(x, _t(inp["head_q"]), _t(inp["head_s"])))
+        out[f"K/{rows}"] = _np(qz.i4_matmul(x, qz.pack_int4_adjacent(_t(inp["k_w"])),
+                                            _t(inp["k_s"])))
+        out[f"H/{rows}"] = _np(qz.q4_fused_mlp_slab(x, *slabs, 1))
+        out[f"H/{rows}/bound"] = np.array(_slab_bound(x, *slabs, 1))
+        for label, ds in (("equal", dn_s[:, :1].expand(-1, 2, -1).contiguous()), ("unequal", dn_s)):
+            fused = qz.q4_fused_mlp_slab(x, *qz.repack_slabs(gu_q, gu_s, dn_q, ds, bi), 1)
+            unfused = qz.q4_matmul_folded(
+                swiglu(qz.q4_matmul_folded(x, gu_q[1], gu_s[1])), dn_q[1], ds[1])
+            out[f"trap/{label}/{rows}"] = np.array([
+                (fused - unfused).abs().max().item(), unfused.abs().max().item(),
+                _slab_bound(x, *qz.repack_slabs(gu_q, gu_s, dn_q, ds, bi), 1)])
+    for name, value in zip(("gq2", "gs2", "dq2", "ds2"), qz.repack_slabs(gu_q, gu_s, dn_q, dn_s, bi)):
+        out[f"slab/{name}"] = _np(value)
+    out["packed"] = qz.pack_int4_adjacent(inp["k_w"])
+    out["unpacked"] = qz.unpack_int4_adjacent(_t(out["packed"])).numpy()
+
+    kw = dict(device="cpu", hidden=256, inter=512, layers=2, steps=1, repeats=1)
+    runs = {"scan": probe_scan_slice.run(**kw),
+            "unpack": probe_unpack.run(floor_bytes=1 << 16, **kw),
+            "fused": probe_stacked_fused.run(vocab=640, inter_block=128, **kw)}
+    for module, results in runs.items():
+        for key, result in results.items():
+            if "first" in result:
+                out[f"run/{module}/{key}"] = _np(result["first"])
+                out[f"run/{module}/{key}/layer"] = _np(result["layer"])
+            out[f"run/{module}/{key}/launches"] = np.array(json.dumps(result["launches"]))
+    return out
 
 
 def case_cuda_kernels(inp):
@@ -424,6 +504,47 @@ def case_cuda_kernels(inp):
             (swapped.float() - want.float()).abs().max().item(),
             float(torch.equal(got, qz.fused_swiglu_mlp(
                 x, qz.QuantizedWeight(gq, gs), qz.QuantizedWeight(dq, ds))))])
+    for name, (rows, out_dim, in_dim, layers) in json.loads(str(inp["fold_cases"])).items():
+        q = torch.randint(0, 256, (max(layers, 1), out_dim, in_dim // 2), generator=gen,
+                          device=dev, dtype=torch.uint8)
+        scale = torch.rand((max(layers, 1), 2, out_dim), generator=gen, device=dev) * 0.01
+        x = torch.randn((rows, in_dim), generator=gen, device=dev)
+        if layers:
+            got = qz.q4_matmul_stacked_folded(x, q, scale, layers - 1)
+        else:
+            got = qz.q4_matmul_folded(x, q[0], scale[0])
+        want = qz.q4_matmul_folded_plain(x, q[max(layers, 1) - 1], scale[max(layers, 1) - 1])
+        out[f"fold/{name}"] = np.array([(got - want).abs().max().item(),
+                                        want.abs().max().item()])
+    for name, (rows, out_dim, in_dim) in json.loads(str(inp["i4_cases"])).items():
+        w = torch.randint(-8, 8, (out_dim, in_dim), generator=gen, device=dev, dtype=torch.int8)
+        q = qz.pack_int4_adjacent(w)
+        scale = torch.rand((1, out_dim), generator=gen, device=dev) * 0.01
+        x = torch.randn((rows, in_dim), generator=gen, device=dev)
+        got, want = qz.i4_matmul(x, q, scale), qz.i4_matmul_plain(x, q, scale)
+        flipped = qz.i4_matmul(x, (q >> 4) | (q << 4), scale)
+        out[f"i4/{name}"] = np.array([(got - want).abs().max().item(), want.abs().max().item(),
+                                      (flipped - want).abs().max().item()])
+    for name, (rows, hidden, inter, bi) in json.loads(str(inp["h_cases"])).items():
+        stacks = (torch.randint(0, 256, (2, 2 * inter, hidden // 2), generator=gen, device=dev,
+                                dtype=torch.uint8),
+                  0.01 + torch.rand((2, 2, 2 * inter), generator=gen, device=dev) * 0.01,
+                  torch.randint(0, 256, (2, hidden, inter // 2), generator=gen, device=dev,
+                                dtype=torch.uint8),
+                  0.01 + torch.rand((2, 2, hidden), generator=gen, device=dev) * 0.01)
+        slabs = qz.repack_slabs(*stacks, bi)
+        x = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+        got = qz.q4_fused_mlp_slab(x, *slabs, 1)
+        want = qz.q4_fused_mlp_slab_plain(x, *slabs, 1)
+        gq2 = slabs[0].clone()
+        gq2[1, 0] = torch.cat([gq2[1, 0, bi:], gq2[1, 0, :bi]])
+        gs2 = slabs[1].clone()
+        gs2[1, 0] = torch.cat([gs2[1, 0, :, bi:], gs2[1, 0, :, :bi]], dim=1)
+        swapped = qz.q4_fused_mlp_slab(x, gq2, gs2, *slabs[2:], 1)
+        out[f"h/{name}"] = np.array([
+            (got - want).abs().max().item(), want.abs().max().item(),
+            _slab_bound(x, *slabs, 1), (swapped - want).abs().max().item(),
+            float(torch.equal(got, qz.q4_fused_mlp_slab(x, *slabs, 1)))])
     torch.cuda.synchronize()
     refused = {}
     x = torch.randn((qz.MAX_KERNEL_ROWS + 1, 64), device=dev)
@@ -448,7 +569,14 @@ def case_cuda_kernels(inp):
                        ("e_u8", lambda: qz.fused_swiglu_mlp(
                            x[:2], qz.QuantizedWeight(gu.q.to(torch.uint8), gu.scale), dn)),
                        ("flash_f32", lambda: fa.flash_attention(*qkv)),
-                       ("flash_d96", lambda: fa.flash_attention(*qkv96))):
+                       ("flash_d96", lambda: fa.flash_attention(*qkv96)),
+                       ("fold_scale_rows", lambda: qz.q4_matmul_folded(x[:2], q, scale)),
+                       ("i4_rows", lambda: qz.i4_matmul(x, q, torch.ones((1, 8), device=dev))),
+                       ("h_slab24", lambda: qz.q4_fused_mlp_slab(x[:2], *qz.repack_slabs(
+                           torch.zeros((1, 48, 32), dtype=torch.uint8, device=dev),
+                           torch.ones((1, 2, 48), device=dev),
+                           torch.zeros((1, 64, 12), dtype=torch.uint8, device=dev),
+                           torch.ones((1, 2, 64), device=dev), 24), 0))):
         try:
             call()
             refused[name] = ""
@@ -457,8 +585,35 @@ def case_cuda_kernels(inp):
     out["refused"] = np.array(json.dumps(refused))
     out["launches"] = np.array([qz.q4_matmul.launches, qz.q4_matmul_stacked.launches,
                                 fa.flash_attention.launches, qz.q8_matmul.launches,
-                                qz.fused_swiglu_mlp.launches])
+                                qz.fused_swiglu_mlp.launches, qz.q4_matmul_folded.launches,
+                                qz.q4_matmul_stacked_folded.launches, qz.i4_matmul.launches,
+                                qz.q4_fused_mlp_slab.launches])
+    out["ab_bits"] = np.array(json.dumps(_ab_bits(qz, json.loads(str(inp["ab_cases"])))))
     return out
+
+
+def _ab_bits(qz, cases):
+    """SHA-256 of the bytes of kernel B's (layers 0) or kernel A's (the last
+    layer) output for each case (rows, out, in, layers), on inputs made with
+    numpy from one seed; ``qz`` is the port's quantized module."""
+    import hashlib
+
+    dev = torch.device("cuda:0")
+    digests = {}
+    for name, (rows, out_dim, in_dim, layers) in cases.items():
+        rng = np.random.default_rng(5)
+        lead = (layers,) if layers else ()
+        q = torch.from_numpy(rng.integers(0, 256, (*lead, out_dim, in_dim // 2),
+                                          dtype=np.uint8)).to(dev)
+        scale = torch.from_numpy((0.01 + 0.005 * rng.standard_normal((*lead, out_dim, 2))
+                                  ).astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((rows, in_dim)).astype(np.float32)).to(dev)
+        if layers:
+            y = qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q, scale, layers - 1))
+        else:
+            y = qz.q4_matmul(x, q, scale)
+        digests[name] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+    return digests
 
 
 def case_int8(inp):

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "vt_flash_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "vt_q8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_q8_swiglu": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_q4_matmul_folded": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_q4_matmul_stacked_folded": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_i4_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_q4_fused_mlp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

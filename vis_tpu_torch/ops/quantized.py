@@ -1,4 +1,5 @@
-"""Weight-only quantization and its kernels: int4 (A and B), int8 (D, E).
+"""Weight-only quantization and its kernels: int4 (A and B), int8 (D, E),
+and the int4 probe tools' kernels (F, H, I, J, K).
 
 Counterpart of ``vis_tpu/ops/quantized.py``.  Int4 has the same byte layout:
 ``q [out, in//2]`` u8 packs input j (low nibble) and input j + in//2 (high
@@ -28,6 +29,21 @@ multiplied by ``scale[o]`` afterwards.  Kernel D carries it on the card
   down(silu(gate(x)) * up(x)), with h rounded to bf16 before the down
   product; ``fused_mlp_applies`` is the JAX package's dispatch rule for it.
 
+The int4 probe tools (``vis_tpu_torch.tools``) add three functions, each
+with the TPU kernels' own folded arithmetic: the unsigned nibble n in
+[0, 15] times bf16 x, summed in f32, the -8 bias folded into a sum of x,
+the scale applied once after the sum (which A and B do not do: they round
+each (n - 8) * s to bf16).  Their scales are the probes' kernel layout,
+``[2, O]`` (the s_lo row, then the s_hi row):
+
+- ``q4_matmul_folded`` / ``q4_matmul_stacked_folded`` (probe kernels J and
+  I / F, the folded entries of ``csrc/q4_matmul.cu``);
+- ``i4_matmul`` (probe kernel K, ``csrc/i4_matmul.cu``): signed int4 stored
+  as adjacent two's-complement nibbles (``pack_int4_adjacent``), one scale
+  per output row;
+- ``q4_fused_mlp_slab`` (probe kernel H, ``csrc/q4_fused_mlp.cu``): a whole
+  int4 SwiGLU MLP over the probe's per-slab layout (``repack_slabs``).
+
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); ``launches`` counts the kernel
 launches.  Dispatch follows the JAX package's shape rule: the kernels take
@@ -42,6 +58,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 MAX_KERNEL_ROWS = 128
@@ -104,7 +121,10 @@ def q4_matmul_plain(x: torch.Tensor, q: torch.Tensor,
     return x.to(torch.bfloat16).to(torch.float32) @ w.T
 
 
-def _check_kernel_args(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
+def _check_kernel_args(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                       scale_shape=None):
+    """Validates an int4 kernel's operands (``scale`` is [O, 2] unless
+    ``scale_shape`` says otherwise) and returns x as contiguous bf16."""
     if q.dtype != torch.uint8 or scale.dtype != torch.float32:
         raise TypeError(f"int4 kernel wants u8 q / f32 scale, got {q.dtype} / {scale.dtype}")
     if not (q.is_contiguous() and scale.is_contiguous()):
@@ -113,7 +133,7 @@ def _check_kernel_args(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
         raise ValueError("int4 kernel operands must share one device")
     batch, in_dim = x.shape
     out_dim, half = q.shape
-    if in_dim != 2 * half or scale.shape != (out_dim, 2):
+    if in_dim != 2 * half or scale.shape != (scale_shape or (out_dim, 2)):
         raise ValueError(f"int4 kernel shapes disagree: x {tuple(x.shape)}, q {tuple(q.shape)}, scale {tuple(scale.shape)}")
     if half % 16 or q.data_ptr() % 16:
         raise ValueError("int4 kernel reads 16 bytes per lane: in//2 and q's address must be multiples of 16")
@@ -126,10 +146,10 @@ def _check_kernel_args(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor):
 
 
 def _launch_q4(entry: str, x: torch.Tensor, q: torch.Tensor,
-               scale: torch.Tensor) -> torch.Tensor:
+               scale: torch.Tensor, scale_shape=None) -> torch.Tensor:
     from vis_tpu_torch.ops import _kernels
 
-    xb = _check_kernel_args(x, q, scale)
+    xb = _check_kernel_args(x, q, scale, scale_shape)
     out_dim, half = q.shape
     y = torch.empty((x.shape[0], out_dim), dtype=torch.float32, device=x.device)
     lib = _kernels.library()
@@ -392,6 +412,211 @@ def embed_rows8(table: QuantizedWeight, token_ids: torch.Tensor) -> torch.Tensor
         torch.bfloat16)
 
 
+# ---------------------------------------------------------------------------
+# The int4 probe tools' kernels: folded (F, I, J), signed int4 (K), fused
+# int4 SwiGLU over slabs (H)
+# ---------------------------------------------------------------------------
+
+def _folded(xf: torch.Tensor, q: torch.Tensor, scale2: torch.Tensor) -> torch.Tensor:
+    """The TPU kernels' folded int4 arithmetic: xf [B, 2*half] f32 (values of
+    bf16), q [O, half] u8 split-half packed, scale2 [2, O] -> [B, O] f32,
+    (x_lo . n_lo - 8 sum x_lo) s_lo + (x_hi . n_hi - 8 sum x_hi) s_hi."""
+    half = q.shape[-1]
+    p = q.to(torch.int32)
+    x_lo, x_hi = xf[:, :half], xf[:, half:]
+    y_lo = x_lo @ (p & 15).to(torch.float32).T - 8.0 * x_lo.sum(dim=1, keepdim=True)
+    y_hi = x_hi @ (p >> 4).to(torch.float32).T - 8.0 * x_hi.sum(dim=1, keepdim=True)
+    return y_lo * scale2[0] + y_hi * scale2[1]
+
+
+def q4_matmul_folded_plain(x: torch.Tensor, q: torch.Tensor,
+                           scale2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the folded kernels (probe F, I, J): x [B, I]
+    rounded to bf16, q [O, I/2], scale2 [2, O] -> [B, O] f32."""
+    return _folded(x.to(torch.bfloat16).to(torch.float32), q, scale2)
+
+
+def q4_matmul_folded(x: torch.Tensor, q: torch.Tensor, scale2: torch.Tensor) -> torch.Tensor:
+    """Probe kernels J and I (``_q4_matmul_kernel_folded``, ``flat_folded``):
+    x [B, I] . W^T with the folded arithmetic for one int4 weight q [O, I/2]
+    and scales [2, O] -> [B, O] f32."""
+    if x.device.type == "cpu":
+        return q4_matmul_folded_plain(x, q, scale2)
+    y = _launch_q4("vt_q4_matmul_folded", x, q, scale2, (2, q.shape[0]))
+    q4_matmul_folded.launches += 1
+    return y
+
+
+q4_matmul_folded.launches = 0
+
+
+def q4_matmul_stacked_folded(x: torch.Tensor, q_stacked: torch.Tensor,
+                             scale_stacked: torch.Tensor, idx: int) -> torch.Tensor:
+    """Probe kernel F (``_q4_stacked_folded_kernel``): the folded arithmetic
+    on layer ``idx`` of q [L, O, I/2] with scales [L, 2, O]; the layer is a
+    view of the stack, so nothing is copied."""
+    q, scale2 = q_stacked[idx], scale_stacked[idx]
+    if x.device.type == "cpu":
+        return q4_matmul_folded_plain(x, q, scale2)
+    y = _launch_q4("vt_q4_matmul_stacked_folded", x, q, scale2, (2, q.shape[0]))
+    q4_matmul_stacked_folded.launches += 1
+    return y
+
+
+q4_matmul_stacked_folded.launches = 0
+
+
+def pack_int4_adjacent(values):
+    """Signed int4 values [..., 2k] (int8 in [-8, 7], numpy or torch) -> the
+    port's packing of them, u8 [..., k]: element 2k in the low nibble and
+    2k + 1 in the high nibble, each as its two's-complement bits.
+
+    The JAX probe stores a native ``jnp.int4`` array; torch has no
+    arithmetic int4 type, so this packing is the port's own choice (no +8
+    offset, no split-half pairing, unlike ``quantize_weight4``)."""
+    u = values.view(torch.uint8 if isinstance(values, torch.Tensor) else np.uint8)
+    return (u[..., 0::2] & 15) | (u[..., 1::2] << 4)
+
+
+def unpack_int4_adjacent(q: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``pack_int4_adjacent``: u8 [..., k] -> int8 [..., 2k]."""
+    p = q.to(torch.int16)
+    pairs = torch.stack([p & 15, p >> 4], dim=-1)
+    return ((pairs ^ 8) - 8).to(torch.int8).reshape(*q.shape[:-1], 2 * q.shape[-1])
+
+
+def i4_matmul_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of probe kernel K: (bf16(x) . w^T, f32 sums) *
+    scale for adjacent-packed signed int4 q [O, I/2], scale [1, O] -> [B, O]."""
+    w = unpack_int4_adjacent(q).to(torch.float32)
+    return (x.to(torch.bfloat16).to(torch.float32) @ w.T) * scale
+
+
+def i4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Probe kernel K wrapper (``_i4_matmul_kernel``): x [B, I] . w^T * scale
+    for a signed int4 weight packed by ``pack_int4_adjacent`` (q [O, I/2] u8)
+    and one scale per output row (scale [1, O] f32, the probe's layout) ->
+    [B, O] f32."""
+    if x.device.type == "cpu":
+        return i4_matmul_plain(x, q, scale)
+    y = _launch_q4("vt_i4_matmul", x, q, scale, (1, q.shape[0]))
+    i4_matmul.launches += 1
+    return y
+
+
+i4_matmul.launches = 0
+
+
+def repack_slabs(gu_q: torch.Tensor, gu_s: torch.Tensor, dn_q: torch.Tensor,
+                 dn_s: torch.Tensor, inter_block: int):
+    """The int4 probe's per-slab repack (``tools/probe_stacked_fused.py``,
+    variant F), copied as it is.  From the probes' stacks gu_q [L, 2I, H/2],
+    gu_s [L, 2, 2I], dn_q [L, H, I/2], dn_s [L, 2, H] and bi = inter_block:
+
+    - gq2 [L, n, 2*bi, H/2]: slab j is gate rows j*bi.. then up rows;
+    - gs2 [L, n, 2, 2*bi]: their scales;
+    - dq2 [L, n, H, bi/2]: byte b of slab j packs intermediate elements
+      j*bi + b (low nibble) and j*bi + bi/2 + b (high);
+    - ds2 [L, n, 2, H]: dn_s's (lo, hi) rows broadcast to every slab.
+
+    The last is the probe's: after the repack slab j's elements all come from
+    one half of the original packing (the lo half for j < n/2), yet its high
+    nibbles take the hi scale.  So the repacked weight equals the original
+    only where dn_s[:, 0] == dn_s[:, 1] (the probe's uniform scales)."""
+    layers, two_inter, halfh = gu_q.shape
+    inter, hidden, bi = two_inter // 2, 2 * halfh, inter_block
+    blocks = inter // bi
+    gate = gu_q[:, :inter].reshape(layers, blocks, bi, halfh)
+    up = gu_q[:, inter:].reshape(layers, blocks, bi, halfh)
+    gq2 = torch.cat([gate, up], dim=2)
+    gs_gate = gu_s[:, :, :inter].reshape(layers, 2, blocks, bi)
+    gs_up = gu_s[:, :, inter:].reshape(layers, 2, blocks, bi)
+    gs2 = torch.cat([gs_gate, gs_up], dim=3).permute(0, 2, 1, 3).contiguous()
+    full = torch.cat([dn_q & 15, dn_q >> 4], dim=-1)  # [L, H, I] nibbles
+    slab = full.reshape(layers, hidden, blocks, bi).permute(0, 2, 1, 3)
+    dq2 = (slab[..., :bi // 2] | (slab[..., bi // 2:] << 4)).contiguous()
+    ds2 = dn_s[:, None].expand(layers, blocks, 2, hidden).contiguous()
+    return gq2, gs2, dq2, ds2
+
+
+def q4_slab_act_plain(x: torch.Tensor, gq: torch.Tensor, gs: torch.Tensor) -> torch.Tensor:
+    """act [B, n*bi] bf16 of one layer's slabs (gq [n, 2bi, H/2], gs
+    [n, 2, 2bi]): bf16(g * sigmoid(g) * u) with g, u from the folded
+    arithmetic."""
+    bi = gq.shape[1] // 2
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    acts = []
+    for j in range(gq.shape[0]):
+        gu = _folded(xf, gq[j], gs[j])
+        g, u = gu[:, :bi], gu[:, bi:]
+        acts.append((g * torch.sigmoid(g) * u).to(torch.bfloat16))
+    return torch.cat(acts, dim=1)
+
+
+def q4_fused_mlp_slab_plain(x: torch.Tensor, gq2: torch.Tensor, gs2: torch.Tensor,
+                            dq2: torch.Tensor, ds2: torch.Tensor, idx: int) -> torch.Tensor:
+    """Plain PyTorch version of probe kernel H on layer ``idx``: each slab's
+    folded down product of its act, summed over the slabs in order from 0
+    -> [B, H] f32."""
+    gq, gs, dq, ds = gq2[idx], gs2[idx], dq2[idx], ds2[idx]
+    bi = gq.shape[1] // 2
+    act = q4_slab_act_plain(x, gq, gs).to(torch.float32)
+    y = torch.zeros((x.shape[0], dq.shape[1]), dtype=torch.float32, device=x.device)
+    for j in range(gq.shape[0]):
+        y = y + _folded(act[:, j * bi:(j + 1) * bi], dq[j], ds[j])
+    return y
+
+
+def q4_fused_mlp_slab(x: torch.Tensor, gq2: torch.Tensor, gs2: torch.Tensor,
+                      dq2: torch.Tensor, ds2: torch.Tensor, idx: int) -> torch.Tensor:
+    """Probe kernel H wrapper (``_q4_fused_mlp_kernel``): the int4 SwiGLU MLP
+    of layer ``idx`` over ``repack_slabs``' layout, x [B, H] -> [B, H] f32.
+    Runs the plain version for CPU tensors; on the card launches the kernel
+    (two stages, one stream) or raises on what it does not take."""
+    if x.device.type == "cpu":
+        return q4_fused_mlp_slab_plain(x, gq2, gs2, dq2, ds2, idx)
+    from vis_tpu_torch.ops import _kernels
+
+    gq, gs, dq, ds = gq2[idx], gs2[idx], dq2[idx], ds2[idx]
+    if gq.dtype != torch.uint8 or dq.dtype != torch.uint8 or any(
+            t.dtype != torch.float32 for t in (gs, ds)):
+        raise TypeError(f"fused int4 MLP wants u8 weights / f32 scales, got "
+                        f"{gq.dtype}, {dq.dtype} / {gs.dtype}, {ds.dtype}")
+    if not all(t.is_contiguous() for t in (gq, gs, dq, ds)):
+        raise ValueError("fused int4 MLP needs contiguous slab stacks")
+    if any(t.device != x.device for t in (gq, gs, dq, ds)):
+        raise ValueError("fused int4 MLP operands must share one device")
+    batch, hidden = x.shape
+    n, two_bi, halfh = gq.shape
+    bi = two_bi // 2
+    if (2 * halfh != hidden or gs.shape != (n, 2, two_bi)
+            or dq.shape != (n, hidden, bi // 2) or ds.shape != (n, 2, hidden)):
+        raise ValueError(f"fused int4 MLP shapes disagree: x {tuple(x.shape)}, gq "
+                         f"{tuple(gq.shape)}, gs {tuple(gs.shape)}, dq {tuple(dq.shape)}, "
+                         f"ds {tuple(ds.shape)}")
+    if hidden % 32 or bi % 32 or gq.data_ptr() % 16 or dq.data_ptr() % 16:
+        raise ValueError("fused int4 MLP reads 16 bytes per lane: hidden and the slab width "
+                         "must be multiples of 32, the weights' addresses of 16")
+    if not 1 <= batch <= MAX_KERNEL_ROWS:
+        raise ValueError(f"fused int4 MLP takes 1..{MAX_KERNEL_ROWS} rows, got {batch}")
+    xb = x.to(torch.bfloat16).contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
+    act = torch.empty((batch, n * bi), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((batch, hidden), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _kernels.library().vt_q4_fused_mlp(
+            xb.data_ptr(), gq.data_ptr(), gs.data_ptr(), dq.data_ptr(), ds.data_ptr(),
+            act.data_ptr(), y.data_ptr(), batch, hidden, n, bi, _kernels.stream_of(x),
+        )
+    _kernels.check(err, "vt_q4_fused_mlp")
+    q4_fused_mlp_slab.launches += 1
+    return y
+
+
+q4_fused_mlp_slab.launches = 0
+
+
 __all__ = [
     "MAX_KERNEL_ROWS",
     "QuantizedWeight",
@@ -402,10 +627,19 @@ __all__ = [
     "fused_mlp_applies",
     "fused_swiglu_mlp",
     "fused_swiglu_mlp_plain",
+    "i4_matmul",
+    "i4_matmul_plain",
     "mlp_block_size",
+    "pack_int4_adjacent",
+    "q4_fused_mlp_slab",
+    "q4_fused_mlp_slab_plain",
     "q4_matmul",
+    "q4_matmul_folded",
+    "q4_matmul_folded_plain",
     "q4_matmul_plain",
     "q4_matmul_stacked",
+    "q4_matmul_stacked_folded",
+    "q4_slab_act_plain",
     "q8_matmul",
     "q8_matmul_plain",
     "quantize_weight",
@@ -416,5 +650,7 @@ __all__ = [
     "quantized_matmul",
     "quantized_matmul4",
     "quantized_matmul4_stacked",
+    "repack_slabs",
     "unpack_int4",
+    "unpack_int4_adjacent",
 ]
