@@ -34,12 +34,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    head), with the tolerance stated, timed beside their bound and PyTorch's
    int4 matmul (torch._weight_int4pack_mm) on the same weights; H with one
    slab's gate and up swapped and K with its nibble order flipped must miss
-   their tolerance.  Then the three probe tools run every variant over the
-   full 28-layer stack, eagerly and as a replayed CUDA graph of one pass,
-   printing ms per pass and GB/s of weight; each of F-K and Q must have
-   launched there, and each variant's first layer from x0 must agree with
-   the variants that run its kernel on the same bytes (bit for bit) and
-   with the plain versions.
+   their tolerance.  The int8 probe's kernels (L, M, N, O, P) at its full
+   shapes: L, M, O and P bit-equal to their plain versions, N (kernel D)
+   within D's tolerance; O with its x halves swapped, O's reading of P's
+   bytes and L's sum without the wrap must miss.  Then the four probe tools
+   run every variant over the full 28-layer stack, eagerly and as a
+   replayed CUDA graph of one pass, printing ms per pass and GB/s of
+   weight; each of F-Q must have launched there, and each variant's first
+   layer from x0 must agree with the variants that run its kernel on the
+   same bytes (bit for bit) and with the plain versions.
 
 Neither jax nor the JAX package (vis_tpu) can be imported here: the port
 stands alone.  The last line of standard output is {"ok": true, "device":
@@ -141,14 +144,16 @@ MLP8 = {"qwen": (3584, 18944, 28, (1, 8)), "llama": (4096, 14336, 8, (1, 3))}
 PROBE_MLP = (3584, 18944)
 PROBE_HEAD, HEAD_BLOCKS, INTER_BLOCK = 152064, (512, 1024, 2048), 1184
 PROBE_STEPS, PROBE_REPEATS = 8, 2
-# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s and bf16 FLOP/s.
-PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12
+# H100 SXM peaks (NVIDIA's data sheet, dense): HBM bytes/s, bf16 FLOP/s and
+# int8 OP/s.
+PEAK_BYTES, PEAK_FLOPS, PEAK_INT8_OPS = 3.35e12, 989e12, 1979e12
 
 
-def bound(nbytes: float, flops: float) -> tuple:
+def bound(nbytes: float, flops: float, peak: float = PEAK_FLOPS) -> tuple:
     """The least time (ms) the card could take for this work, and what
-    bounds it: the bytes over HBM's rate or the operations over bf16's."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
+    bounds it: the bytes over HBM's rate or the operations over ``peak``
+    (bf16's unless the operations are on integers)."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -402,8 +407,9 @@ def phase_kernels() -> dict:
     bound_d = bound(w.q.numel() + w.scale.numel() * 4 + 3 * inn * 2 + 3 * rows * 4,
                     2 * 3 * rows * inn)
     print(f"[D] head B=3 bound {bound_d[0]:.4f} ms ({bound_d[1]})")
+    library_d = _library_int8("head B=3", x, [(w.q, w.scale)], tag="D")
     report["D"] = dict(err=worst_d, ms=times_d[3][0], plain_ms=times_d[3][1], bound=bound_d,
-                       library_ms=None)
+                       library_ms=library_d)
     del w
     report["E"] = _kernel_e(gen, dev)
     return report
@@ -816,12 +822,12 @@ def _miss_probe(label: str, broken, want, tol: float) -> None:
 
 
 def _timed_probe(key: str, shape: str, kernel, plain, nbytes: int, flops: int,
-                 calls: int) -> tuple:
+                 calls: int, peak: float = PEAK_FLOPS) -> tuple:
     """Kernel and plain times (``device_ms``, ``stream_ms``; fn(i) walks the
-    stack with i) and the bound for ``nbytes`` and ``flops``."""
+    stack with i) and the bound for ``nbytes`` and ``flops`` at ``peak``."""
     ms = device_ms(kernel, calls)
     plain_ms = stream_ms(plain, max(4, calls // 4))
-    limit = bound(nbytes, flops)
+    limit = bound(nbytes, flops, peak)
     print(f"[probes] {key} {shape}: kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), "
           f"plain {plain_ms:.4f} ms, bound {limit[0]:.4f} ms ({limit[1]})")
     return ms, plain_ms, limit
@@ -879,6 +885,38 @@ def _library_int4(label: str, inp, weights, calls: int = 30, tag: str = "probes"
     ms = device_ms(lambda i: torch._weight_int4pack_mm(
         inp, packs[i % len(packs)][0], INT4PACK_GROUP, packs[i % len(packs)][1]), calls)
     print(f"[{tag}] library torch._weight_int4pack_mm {label}: {ms:.4f} ms")
+    return ms
+
+
+def _library_int8(label: str, inp, weights, calls: int = 30, tag: str = "probes"):
+    """The time (``device_ms``) of torch._weight_int8pack_mm (bf16 x, int8
+    rows, bf16 scales, bf16 out) on x ``inp`` over ``weights``, a list of
+    (q, scale [O] f32) walked in turn, each scale converted once outside the
+    timing; its output on the first weight is held within 2^-7 * max|y| of
+    kernel D's plain version (it rounds the scales and the output to bf16).
+    None, said so, where this torch build has no CUDA kernel for it."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+
+    name = "torch._weight_int8pack_mm"
+    if not torch._C._dispatch_has_kernel_for_dispatch_key("aten::_weight_int8pack_mm", "CUDA"):
+        print(f"[{tag}] library {name} {label}: none, torch {torch.__version__} registers no "
+              "CUDA kernel for it")
+        return None
+    scales = [s.to(torch.bfloat16) for _, s in weights]
+    got = torch._weight_int8pack_mm(inp, weights[0][0], scales[0])
+    want = qz.q8_matmul_plain(inp, *weights[0])
+    err = (got.float() - want).abs().max().item()
+    tol = 2.0 ** -7 * want.abs().max().item()
+    print(f"[{tag}] library {name} {label}: max|err| vs kernel D's plain version {err:.3e} <= "
+          f"tol {tol:.3e}")
+    if not (tuple(got.shape) == tuple(want.shape) and err <= tol):
+        raise AssertionError(f"library int8 matmul {label}: {err} > {tol} or shape "
+                             f"{tuple(got.shape)}")
+    ms = device_ms(lambda i: torch._weight_int8pack_mm(
+        inp, weights[i % len(weights)][0], scales[i % len(weights)]), calls)
+    print(f"[{tag}] library {name} {label}: {ms:.4f} ms")
     return ms
 
 
@@ -1069,6 +1107,160 @@ def _probe_kernels(gen, dev) -> dict:
     return report
 
 
+def _same_bits(label: str, got, want) -> None:
+    """Bit-equal, or the script fails."""
+    import torch
+
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        diff = (got.double() - want.double()).abs().max().item()
+        raise AssertionError(f"probe kernel {label}: not bit-equal to its plain version "
+                             f"(max|err| {diff:.3e})")
+    print(f"[probes] {label}: bit-equal to its plain version (max|err| 0)")
+
+
+def _exact_ints(label: str, got, want) -> None:
+    """A kernel's integer sums, read through unit scales as f32 ``got``,
+    equal the exact sums ``want`` (float64); exact while |want| < 2^24."""
+    top = want.abs().max().item()
+    if not top < 2 ** 24:
+        raise AssertionError(f"{label}: sums reach {top}, past f32's exact integers")
+    _same_bits(f"{label} integer sums", got.double(), want)
+
+
+def _int_dot_kernels(gen, dev) -> dict:
+    """L, M, N, O and P at the int8 probe's full shapes: gate_up [37888,
+    3584] and down [3584, 18944] (int8 for M and N, split-half int4 for O
+    and P, whose bytes L sums), B = 1 and 8, int8 activations from
+    quant_act.  L's sum wraps and M, O and P keep exact int32 sums with a
+    rounded (never fused) epilogue, so each must equal its plain version
+    bit for bit, and their integer sums (read through unit scales) the
+    exact ones; N is kernel D, held to D's 1e-3 * max|y|.  O with its x
+    halves swapped, O on P's bytes (n - 8 for the two's-complement value)
+    and the gate_up sum without the wrap must miss (tolerance 0).  Timing walks 3 layers,
+    so each launch reads its weight from device memory; the integer rows'
+    bounds take int8's peak, N's bf16's.  Library calls: torch.sum(dtype=
+    int32) for L, torch._int_mm for M (x zero-padded to 32 rows, as its
+    cuBLASLt path takes more than 16; the time is not divided), and
+    torch._weight_int8pack_mm for N; none takes int4 weights with int8
+    activations, so O and P have none."""
+    import torch
+
+    from vis_tpu_torch.ops import int_dot
+    from vis_tpu_torch.ops import quantized as qz
+
+    hidden, inter = PROBE_MLP
+    walk = 3
+    shapes = {"gate_up": (2 * inter, hidden), "down": (hidden, inter)}
+    q4 = {name: torch.randint(0, 256, (walk, out, inn // 2), generator=gen, device=dev,
+                              dtype=torch.uint8) for name, (out, inn) in shapes.items()}
+    s4 = {name: 0.01 * (1 + torch.rand((walk, 2, out), generator=gen, device=dev))
+          for name, (out, _) in shapes.items()}
+    q8 = {name: torch.randint(-127, 128, (walk, out, inn), generator=gen, device=dev,
+                              dtype=torch.int8) for name, (out, inn) in shapes.items()}
+    s8 = {name: 1e-4 * (1 + torch.rand((walk, 1, out), generator=gen, device=dev))
+          for name, (out, _) in shapes.items()}
+    rows_timed = {}  # (key, weight, rows) -> (ms, plain_ms, bound)
+    report = {}
+
+    def timed(key, name, rows, kernel, plain, nbytes, ops, peak):
+        rows_timed[(key, name, rows)] = _timed_probe(
+            key, f"{name} B={rows}" if rows else name, lambda i: kernel(i % walk),
+            lambda i: plain(i % walk), nbytes, ops, 30, peak)
+
+    # L: the wrapping byte sum over the int4 weights' bytes.
+    library = {}
+    for name, q in q4.items():
+        got = int_dot.u8_sum(q[0])
+        _same_bits(f"L {name} u8 {list(q[0].shape)}", got, int_dot.u8_sum_plain(q[0]))
+        lib = torch.sum(q[0], dtype=torch.int32)
+        _same_bits(f"L {name} against torch.sum(dtype=int32)", got.reshape(()), lib)
+        if name == "gate_up":
+            _miss_probe(f"L {name} summed without the wrap (int64 "
+                        f"{q[0].sum(dtype=torch.int64).item()}, kernel {got.item()})",
+                        got, q[0].sum(dtype=torch.int64).reshape(1, 1), 0.0)
+        timed("L", name, 0, lambda i, q=q: int_dot.u8_sum(q[i]),
+              lambda i, q=q: int_dot.u8_sum_plain(q[i]), q[0].numel() + 4, q[0].numel(),
+              PEAK_INT8_OPS)
+        library[name] = device_ms(lambda i, q=q: torch.sum(q[i % walk], dtype=torch.int32), 30)
+        print(f"[probes] L {name}: library torch.sum(dtype=int32) {library[name]:.4f} ms")
+    report["L"] = dict(err=0.0, ms=rows_timed[("L", "gate_up", 0)][0],
+                       plain_ms=rows_timed[("L", "gate_up", 0)][1],
+                       bound=rows_timed[("L", "gate_up", 0)][2], library_ms=library["gate_up"])
+
+    library_m, library_n, worst_n = {}, {}, 0.0
+    for name, (out, inn) in shapes.items():
+        half = inn // 2
+        for rows in (1, 8):
+            x8, _ = int_dot.quant_act(
+                torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16))
+            xb = torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16)
+            io = rows * inn + rows * out * 4
+            # M
+            q, s = q8[name], s8[name]
+            _same_bits(f"M {name} B={rows}", int_dot.i8_matmul(x8, q[0], s[0]),
+                       int_dot.i8_matmul_plain(x8, q[0], s[0]))
+            exact = x8.double() @ q[0].double().T
+            _exact_ints(f"M {name} B={rows}", int_dot.i8_matmul(
+                x8, q[0], torch.ones_like(s[0])), exact)
+            timed("M", name, rows, lambda i: int_dot.i8_matmul(x8, q[i], s[i]),
+                  lambda i: int_dot.i8_matmul_plain(x8, q[i], s[i]),
+                  q[0].numel() + out * 4 + io, 2 * rows * out * inn, PEAK_INT8_OPS)
+            if rows == 1:
+                pad = torch.zeros((32, inn), dtype=torch.int8, device=dev)
+                pad[:rows] = x8
+                _same_bits(f"M {name} library torch._int_mm (x padded to 32 rows)",
+                           torch._int_mm(pad, q[0].t())[:rows].double(), exact)
+                library_m[name] = device_ms(lambda i: torch._int_mm(pad, q[i % walk].t()), 30)
+                print(f"[probes] M {name}: library torch._int_mm [32, {inn}] x [{inn}, {out}] "
+                      f"{library_m[name]:.4f} ms (32 rows, not divided)")
+            # N: kernel D on the same int8 bytes, scales [O].
+            got = qz.q8_matmul(xb, q[0], s[0, 0])
+            want = qz.q8_matmul_plain(xb, q[0], s[0, 0])
+            worst_n = max(worst_n, _hold_probe(f"N {name} B={rows} (kernel D)", got, want,
+                                               1e-3 * want.abs().max().item()))
+            timed("N", name, rows, lambda i: qz.q8_matmul(xb, q[i], s[i, 0]),
+                  lambda i: qz.q8_matmul_plain(xb, q[i], s[i, 0]),
+                  q[0].numel() + out * 4 + rows * inn * 2 + rows * out * 4,
+                  2 * rows * out * inn, PEAK_FLOPS)
+            if rows == 1:
+                library_n[name] = _library_int8(f"N {name} B={rows}", xb,
+                                                [(q[i], s[i, 0]) for i in range(walk)])
+            # O and P on the int4 bytes.
+            q, s = q4[name], s4[name]
+            lo, hi = int_dot.offset_nibbles(q[0])
+            slo, shi = int_dot.signed_nibbles(q[0])
+            unit = {"lo": torch.tensor([[1.0], [0.0]], device=dev).expand(2, out).contiguous(),
+                    "hi": torch.tensor([[0.0], [1.0]], device=dev).expand(2, out).contiguous()}
+            for key, fn, plain, (wl, wh) in (
+                    ("O", int_dot.q4_i8_matmul, int_dot.q4_i8_matmul_plain, (lo, hi)),
+                    ("P", int_dot.q4_i8s_matmul, int_dot.q4_i8s_matmul_plain, (slo, shi))):
+                want = plain(x8, q[0], s[0])
+                _same_bits(f"{key} {name} B={rows}", fn(x8, q[0], s[0]), want)
+                for part, w_part, xs in (("lo", wl, x8[:, :half]), ("hi", wh, x8[:, half:])):
+                    _exact_ints(f"{key} {name} B={rows} {part}", fn(x8, q[0], unit[part]),
+                                xs.double() @ w_part.double().T)
+                timed(key, name, rows, lambda i, fn=fn: fn(x8, q[i], s[i]),
+                      lambda i, plain=plain: plain(x8, q[i], s[i]),
+                      q[0].numel() + 2 * out * 4 + io, 2 * rows * out * inn, PEAK_INT8_OPS)
+            want = int_dot.q4_i8_matmul_plain(x8, q[0], s[0])
+            print(f"[probes] O {name} B={rows}: max|y| {want.abs().max().item():.3e}")
+            _miss_probe(f"O {name} B={rows}, x halves swapped", int_dot.q4_i8_matmul(
+                torch.cat([x8[:, half:], x8[:, :half]], dim=1), q[0], s[0]), want, 0.0)
+            _miss_probe(f"P {name} B={rows}, decoded as O (n - 8)", int_dot.q4_i8_matmul(
+                x8, q[0], s[0]), int_dot.q4_i8s_matmul_plain(x8, q[0], s[0]), 0.0)
+            del lo, hi, slo, shi
+    for key, lib in (("M", library_m["gate_up"]), ("N", library_n["gate_up"]),
+                     ("O", None), ("P", None)):
+        ms, plain_ms, limit = rows_timed[(key, "gate_up", 1)]
+        report[key] = dict(err=worst_n if key == "N" else 0.0, ms=ms, plain_ms=plain_ms,
+                           bound=limit, library_ms=lib)
+    print("[probes] O, P: no library call takes int4 weights with int8 activations")
+    del q4, q8
+    torch.cuda.empty_cache()
+    return report
+
+
 # Which probe variant runs which TPU kernel, through which wrapper:
 # kernel -> (probe tool, result key(s), wrapper).
 PROBE_PATHS = {
@@ -1078,6 +1270,11 @@ PROBE_PATHS = {
     "I": ("probe_stacked_fused", tuple(f"H{b}" for b in HEAD_BLOCKS), "q4_matmul_folded"),
     "J": ("probe_unpack", ("B",), "q4_matmul_folded"),
     "K": ("probe_unpack", ("C",), "i4_matmul"),
+    "L": ("probe_unpack2", ("S",), "u8_sum"),
+    "M": ("probe_unpack2", ("F",), "i8_matmul"),
+    "N": ("probe_unpack2", ("G",), "q8_matmul"),
+    "O": ("probe_unpack2", ("H",), "q4_i8_matmul"),
+    "P": ("probe_unpack2", ("I",), "q4_i8s_matmul"),
     "Q": ("probe_scan_slice", ("D",), "q4_matmul_stacked"),
 }
 
@@ -1100,18 +1297,22 @@ def _check_probe_layers(results) -> None:
     every layer and overflows within a pass, on the TPU as here, so a pass's
     output is no value to check.  Its first layer is: each variant's must be
     finite, agree bit for bit with the variants of ``SAME_LAYER``, and
-    (kernels A/B, folded, H, K) agree with the same layer through the plain
-    versions on the same seed's weights within 2^-6 * max|h| (the sums in
-    another order can move h's bf16 rounding, or an act's, by one step, at
-    most 2^-7 * |h|)."""
+    (kernels A/B, folded, H, K, M, O, P) agree with the same layer through
+    the plain versions on the same seed's weights within 2^-6 * max|h| (the
+    sums in another order can move h's bf16 rounding, or an act's, by one
+    step, at most 2^-7 * |h|); the int8 probe's G (kernel N on D) must equal
+    the layer through q8_matmul on the same bytes bit for bit.  The int8
+    probe's S returns a sum, not a layer: its pass from 0 must equal the
+    plain wrapped sum over the stack's bytes, bit for bit."""
     import torch
 
+    from vis_tpu_torch.ops import int_dot
     from vis_tpu_torch.ops import quantized as qz
-    from vis_tpu_torch.tools import _probe, probe_unpack
+    from vis_tpu_torch.tools import _probe, probe_unpack, probe_unpack2
 
     hidden, inter = PROBE_MLP
     layer = {(tool, key): r["layer"] for tool, by_key in results.items()
-             for key, r in by_key.items() if "layer" in r}
+             for key, r in by_key.items() if "layer" in r and r["layer"].is_floating_point()}
     for (tool, key), h in layer.items():
         if tuple(h.shape) != (1, hidden) or not bool(torch.isfinite(h).all()):
             raise AssertionError(f"{tool} {key}: first layer {tuple(h.shape)} or non-finite")
@@ -1139,7 +1340,32 @@ def _check_probe_layers(results) -> None:
         ("probe_stacked_fused", "F"): folded,
         ("probe_unpack", "C"): plain_layer(qz.i4_matmul_plain, gu4[0], gs4[0], dn4[0], ds4[0]),
     }
-    del stack, gu4, gs4, dn4, ds4
+    del gu4, gs4, dn4, ds4
+    int4 = (stack.gu_q[0], stack.gu_s[0], stack.dn_q[0], stack.dn_s[0])
+    wants[("probe_unpack2", "H")] = probe_unpack2.quantized_layer(
+        int_dot.q4_i8_matmul_plain, x0, *int4)
+    wants[("probe_unpack2", "I")] = probe_unpack2.quantized_layer(
+        int_dot.q4_i8s_matmul_plain, x0, *int4)
+    got = results["probe_unpack2"]["S"]["first"]
+    want = int_dot.wrap_int32(stack.gu_q.sum(dtype=torch.int64) +
+                              stack.dn_q.sum(dtype=torch.int64)).reshape(1, 1)
+    print(f"[probes] probe_unpack2 S, one pass from 0: {got.item()} == plain wrapped sum "
+          f"{want.item()}")
+    if not torch.equal(got, want):
+        raise AssertionError(f"probe_unpack2 S: {got.item()} != {want.item()}")
+    del stack, int4
+    # The int8 stack is drawn after the int4 one from the same seed.
+    gen = _probe.generator(DEVICE, SEED)
+    _probe.int4_stack(gen, hidden, inter, LAYERS)
+    gu8, gs8, dn8, ds8 = probe_unpack2.int8_stack(gen, hidden, inter, LAYERS)
+    wants[("probe_unpack2", "F")] = probe_unpack2.quantized_layer(
+        int_dot.i8_matmul_plain, x0, gu8[0], gs8[0], dn8[0], ds8[0])
+    through_d = probe_unpack2.mixed_layer(x0, gu8[0], gs8[0, 0], dn8[0], ds8[0, 0])
+    if not torch.equal(layer[("probe_unpack2", "G")], through_d):
+        raise AssertionError("probe_unpack2 G first layer differs from the layer through "
+                             "q8_matmul on the same bytes")
+    print("[probes] first layer, probe_unpack2 G: bit-equal to the layer through q8_matmul")
+    del gu8, gs8, dn8, ds8
     for (tool, key), want in wants.items():
         got = layer[(tool, key)]
         err = (got.float() - want.float()).abs().max().item()
@@ -1151,7 +1377,7 @@ def _check_probe_layers(results) -> None:
 
 
 def phase_probes() -> tuple:
-    """Phase 7: the probe kernels' checks, then every variant of the three
+    """Phase 7: the probe kernels' checks, then every variant of the four
     probe tools over the full 7B MLP stack, with nothing caught.  Every
     wrapper's count is set to 0 just before the tools run and read just
     after; returns the kernel report and each probe kernel's launches."""
@@ -1166,11 +1392,12 @@ def phase_probes() -> tuple:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     report = _probe_kernels(gen, dev)
+    report.update(_int_dot_kernels(gen, dev))
     for fn in _probe.WRAPPERS:
         fn.launches = 0
     results = {}
     for tool, variants in (("probe_scan_slice", "ABCD"), ("probe_unpack", "ABCDE"),
-                           ("probe_stacked_fused", "DEFH")):
+                           ("probe_stacked_fused", "DEFH"), ("probe_unpack2", "SFGHI")):
         print(f"[probes] python -m vis_tpu_torch.tools.{tool} {variants} "
               f"(steps {PROBE_STEPS}, best of {PROBE_REPEATS})", flush=True)
         module = importlib.import_module(f"vis_tpu_torch.tools.{tool}")
@@ -1213,6 +1440,11 @@ KERNELS = {  # key: (wrapper, source, the TPU kernel it replaces)
           "tools/probe_stacked_fused.py:376"),
     "J": ("q4_matmul_folded", "vis_tpu_torch/csrc/q4_matmul.cu", "tools/probe_unpack.py:55"),
     "K": ("i4_matmul", "vis_tpu_torch/csrc/i4_matmul.cu", "tools/probe_unpack.py:105"),
+    "L": ("u8_sum", "vis_tpu_torch/csrc/int_dot.cu", "tools/probe_unpack2.py:64"),
+    "M": ("i8_matmul", "vis_tpu_torch/csrc/int_dot.cu", "tools/probe_unpack2.py:88"),
+    "N": ("q8_matmul", "vis_tpu_torch/csrc/q8_matmul.cu", "tools/probe_unpack2.py:120"),
+    "O": ("q4_i8_matmul", "vis_tpu_torch/csrc/int_dot.cu", "tools/probe_unpack2.py:152"),
+    "P": ("q4_i8s_matmul", "vis_tpu_torch/csrc/int_dot.cu", "tools/probe_unpack2.py:195"),
     "Q": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
           "tools/probe_scan_slice.py:66"),
 }

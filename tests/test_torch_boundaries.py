@@ -16,12 +16,13 @@ PORT_FILES = sorted((REPO / "vis_tpu_torch").rglob("*.py")) + [REPO / "chip_smok
 # Every file of the port, and the scripts that drive it with vis_tpu blocked.
 STANDALONE_FILES = PORT_FILES + [REPO / "tools" / "profile_port_decode.py",
                                  REPO / "tests" / "torch_port_runner.py"]
-KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n for n in ("quantized.py", "flash_attention.py")]
+KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n
+                  for n in ("quantized.py", "flash_attention.py", "int_dot.py")]
 FORBIDDEN_CALLS = {"scaled_dot_product_attention", "compile", "multi_head_attention_forward",
                    "_scaled_dot_product_flash_attention", "_scaled_dot_product_efficient_attention"}
 WRAPPERS = ("q4_matmul", "q4_matmul_stacked", "flash_attention", "q8_matmul",
             "fused_swiglu_mlp", "q4_matmul_folded", "q4_matmul_stacked_folded", "i4_matmul",
-            "q4_fused_mlp_slab")
+            "q4_fused_mlp_slab", "u8_sum", "i8_matmul", "q4_i8_matmul", "q4_i8s_matmul")
 
 
 def _imports(path):

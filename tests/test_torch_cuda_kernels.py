@@ -18,7 +18,11 @@ nibble order flipped must miss that; the fused slab MLP (H) rounds act to
 bf16 inside, so a flip of one act value in 32 is allowed, max|err| <=
 2^-12 * max_o sum_i |act_i w_oi| + 1e-4 * max|y|, which the same kernel
 with one slab's gate and up swapped must exceed, and two runs must agree
-bit for bit.  Kernels A and B give the same output bits as before the
+bit for bit.  The int8 probe's kernels: the byte sum (L) equals its plain
+version and torch.sum(dtype=int32) bit for bit, and the large cases wrap;
+M, O and P have exact int32 sums and an epilogue of rounded (never fused)
+operations, so they equal their plain versions bit for bit, and O with its
+x halves swapped, or on P's reading of the bytes, must not.  Kernels A and B give the same output bits as before the
 folded kernels were added to their source (SHA-256 of their outputs on
 seeded inputs, measured on an NVIDIA H100 80GB HBM3 with the parent
 source).  Flash attention reads and
@@ -75,6 +79,19 @@ H_CASES = {  # name: (rows, hidden, inter, slab rows)
     "8x3584x2368x1184": (8, 3584, 2368, 1184),  # the probe's hidden and slab width
     "128x256x256x32": (128, 256, 256, 32),
 }
+L_CASES = {  # name: (rows, width, fill byte or -1 for random bytes)
+    "1x16": (1, 16, -1),
+    "333x48": (333, 48, -1),
+    "gate_up-37888x1792": (37888, 1792, -1),  # the probe's int4 gate_up, wraps
+    "wrap-4096x2304": (4096, 2304, 255),
+}
+INT_CASES = {  # name: (rows, out, in); M: q [out, in] int8, O and P: q [out, in/2] u8
+    "1x200x512": (1, 200, 512),
+    "3x1000x256": (3, 1000, 256),
+    "8x72x4128": (8, 72, 4128),      # 3 x stages of M, a 16-column last stage of O / P
+    "9x40x96": (9, 40, 96),          # two batch passes
+    "128x64x1024": (128, 64, 1024),
+}
 AB_CASES = {  # name: (rows, out, in, stacked layers or 0); B single, A stacked
     "B-3x4096x3584": (3, 4096, 3584, 0),
     "A-8x4608x3584": (8, 4608, 3584, 2),
@@ -99,7 +116,9 @@ def card(tmp_path_factory):
                                     "fold_cases": np.array(json.dumps(FOLD_CASES)),
                                     "i4_cases": np.array(json.dumps(I4_CASES)),
                                     "h_cases": np.array(json.dumps(H_CASES)),
-                                    "ab_cases": np.array(json.dumps(AB_CASES))},
+                                    "ab_cases": np.array(json.dumps(AB_CASES)),
+                                    "l_cases": np.array(json.dumps(L_CASES)),
+                                    "int_cases": np.array(json.dumps(INT_CASES))},
                    tmp_path_factory.mktemp("torch_cuda_kernels"))
     if str(out["skip"]):
         pytest.skip(str(out["skip"]))
@@ -157,6 +176,21 @@ def test_fused_slab_mlp_kernel_matches_plain(card, name):
     assert repeatable == 1.0
 
 
+@pytest.mark.parametrize("name", list(L_CASES))
+def test_byte_sum_kernel_matches_plain(card, name):
+    equal, library_equal, unwrapped_differs = card[f"l/{name}"].tolist()
+    assert equal == 1.0 and library_equal == 1.0
+    if name.startswith(("gate_up", "wrap")):
+        assert unwrapped_differs == 1.0  # the sum passed 2^31 and wrapped
+
+
+@pytest.mark.parametrize("name", list(INT_CASES))
+def test_int8_activation_kernels_match_plain_bit_for_bit(card, name):
+    m, o, p, o_swapped, o_as_p = card[f"int/{name}"].tolist()
+    assert (m, o, p) == (1.0, 1.0, 1.0)
+    assert o_swapped == 0.0 and o_as_p == 0.0
+
+
 def test_fold_flag_leaves_kernels_a_and_b_bit_for_bit(card):
     assert json.loads(str(card["ab_bits"])) == AB_BITS
 
@@ -166,7 +200,9 @@ def test_kernels_refuse_what_they_do_not_take(card):
         "q4_rows": "ValueError", "q8_rows": "ValueError", "q8_in16": "ValueError",
         "q8_u8": "TypeError", "e_rows": "ValueError", "e_shape": "ValueError",
         "e_u8": "TypeError", "flash_f32": "TypeError", "flash_d96": "ValueError",
-        "fold_scale_rows": "ValueError", "i4_rows": "ValueError", "h_slab24": "ValueError"}
+        "fold_scale_rows": "ValueError", "i4_rows": "ValueError", "h_slab24": "ValueError",
+        "l_misaligned": "ValueError", "m_misaligned": "ValueError", "m_bf16": "TypeError",
+        "o_scale_rows": "ValueError", "p_rows": "ValueError"}
 
 
 def test_each_case_counted_one_launch(card):
@@ -180,4 +216,8 @@ def test_each_case_counted_one_launch(card):
         sum(1 for *_, layers in FOLD_CASES.values() if layers),
         2 * len(I4_CASES),  # the checked run and the flipped-nibble run
         3 * len(H_CASES),   # the checked run, the swapped-slab run, the repeat
+        len(L_CASES),
+        len(INT_CASES),
+        3 * len(INT_CASES),  # the checked run, x halves swapped, P's reading
+        len(INT_CASES),
     ]

@@ -313,6 +313,7 @@ def case_boundaries(inp):
     from vis_tpu_torch import agents as port_agents
     from vis_tpu_torch.ops import _kernels
     from vis_tpu_torch.ops import flash_attention as fa
+    from vis_tpu_torch.ops import int_dot
     from vis_tpu_torch.ops import quantized as qz
 
     gen = torch.Generator().manual_seed(0)
@@ -358,9 +359,23 @@ def case_boundaries(inp):
         "q4_fused_mlp_slab": torch.equal(qz.q4_fused_mlp_slab(x, *slabs, 1),
                                          qz.q4_fused_mlp_slab_plain(x, *slabs, 1)),
     })
+    # The int8 probe's wrappers: int8 x, int8 / split-half int4 q.
+    x8 = torch.randint(-127, 128, (4, 64), generator=gen, dtype=torch.int8)
+    s1 = torch.rand((1, 48), generator=gen) * 0.01
+    same.update({
+        "u8_sum": torch.equal(int_dot.u8_sum(i4), int_dot.u8_sum_plain(i4)),
+        "i8_matmul": torch.equal(int_dot.i8_matmul(x8, q8, s1),
+                                 int_dot.i8_matmul_plain(x8, q8, s1)),
+        "q4_i8_matmul": torch.equal(int_dot.q4_i8_matmul(x8, i4, s2[0, :, :48]),
+                                    int_dot.q4_i8_matmul_plain(x8, i4, s2[0, :, :48])),
+        "q4_i8s_matmul": torch.equal(int_dot.q4_i8s_matmul(x8, i4, s2[0, :, :48]),
+                                     int_dot.q4_i8s_matmul_plain(x8, i4, s2[0, :, :48])),
+    })
     launches = {name: getattr(qz, name).launches for name in (
         "q4_matmul", "q4_matmul_stacked", "q8_matmul", "fused_swiglu_mlp", "q4_matmul_folded",
         "q4_matmul_stacked_folded", "i4_matmul", "q4_fused_mlp_slab")}
+    launches.update({name: getattr(int_dot, name).launches for name in (
+        "u8_sum", "i8_matmul", "q4_i8_matmul", "q4_i8s_matmul")})
     launches["flash_attention"] = fa.flash_attention.launches
     try:
         port_agents.install("cuda")
@@ -440,12 +455,69 @@ def case_probes(inp):
     return out
 
 
+def case_probe_unpack2(inp):
+    """The int8 probe's counterparts on the CPU (plain versions): the byte
+    sum (L), int8 x int8 (M), kernel D for N, int4 -> int8 (O, P) with their
+    integer sums read through unit scales, quant_act, one layer of each
+    variant's body on random x, and the tool run end to end at a tiny shape
+    with the weights it drew."""
+    from vis_tpu_torch.ops import int_dot
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.tools import _probe, probe_unpack2
+
+    out = {}
+    for name in json.loads(str(inp["l_cases"])):
+        out[f"L/{name}"] = _np(int_dot.u8_sum(_t(inp[f"l/{name}"])))
+    unit = {"lo": torch.tensor([1.0, 0.0]), "hi": torch.tensor([0.0, 1.0])}
+    kernels = {"O": int_dot.q4_i8_matmul, "P": int_dot.q4_i8s_matmul}
+    for rows in inp["rows"].tolist():
+        for w in ("gu", "dn"):
+            x8, xb = _t(inp[f"x8/{w}/{rows}"]), _t(inp[f"xb/{w}/{rows}"])
+            out[f"M/{w}/{rows}"] = _np(int_dot.i8_matmul(x8, _t(inp[f"m/{w}"]),
+                                                         _t(inp[f"m/{w}s"])))
+            out[f"N/{w}/{rows}"] = _np(qz.q8_matmul(xb, _t(inp[f"m/{w}"]), _t(inp[f"m/{w}s"])[0]))
+            q4, s4 = _t(inp[f"q4/{w}"]), _t(inp[f"q4/{w}s"])
+            for key, fn in kernels.items():
+                out[f"{key}/{w}/{rows}"] = _np(fn(x8, q4, s4))
+                for part, rows_scale in unit.items():
+                    s = rows_scale[:, None].expand(2, q4.shape[0]).contiguous()
+                    out[f"{key}/{w}/{rows}/{part}"] = _np(fn(x8, q4, s))
+    codes, scales = int_dot.quant_act(_t(inp["act"]).to(torch.bfloat16))
+    out["quant/codes"], out["quant/scales"] = codes.numpy(), _np(scales)
+
+    body = {"F": lambda h, *w: probe_unpack2.quantized_layer(int_dot.i8_matmul, h, *w),
+            "G": probe_unpack2.mixed_layer,
+            "H": lambda h, *w: probe_unpack2.quantized_layer(int_dot.q4_i8_matmul, h, *w),
+            "I": lambda h, *w: probe_unpack2.quantized_layer(int_dot.q4_i8s_matmul, h, *w)}
+    b8 = [_t(inp[f"body/{k}"]) for k in ("gu8", "gs8", "dn8", "ds8")]
+    b4 = [_t(inp[f"body/{k}"]) for k in ("gu4", "gs4", "dn4", "ds4")]
+    weights = {"F": b8, "G": [b8[0], b8[1][0], b8[2], b8[3][0]], "H": b4, "I": b4}
+    for key, fn in body.items():
+        out[f"body/{key}"] = _np(fn(_t(inp["body/x"]).to(torch.bfloat16), *weights[key]))
+
+    hidden, inter, layers = 256, 512, 2
+    runs = probe_unpack2.run(device="cpu", hidden=hidden, inter=inter, layers=layers, steps=1,
+                             repeats=1)
+    for key, result in runs.items():
+        out[f"run/{key}"], out[f"run/{key}/layer"] = _np(result["first"]), _np(result["layer"])
+        out[f"run/{key}/launches"] = np.array(json.dumps(result["launches"]))
+    gen = _probe.generator("cpu", 0)
+    stack = _probe.int4_stack(gen, hidden, inter, layers)
+    for name in ("gu_q", "gu_s", "dn_q", "dn_s"):
+        out[f"stack/{name}"] = _np(getattr(stack, name))
+    for name, value in zip(("gu8", "gs8", "dn8", "ds8"),
+                           probe_unpack2.int8_stack(gen, hidden, inter, layers)):
+        out[f"stack/{name}"] = _np(value)
+    return out
+
+
 def case_cuda_kernels(inp):
     """Each kernel against its plain version on the card, at small and ragged
     shapes; on a host without a card it reports why nothing ran."""
     if not torch.cuda.is_available():
         return {"skip": np.array("torch sees no CUDA device")}
     from vis_tpu_torch.ops import flash_attention as fa
+    from vis_tpu_torch.ops import int_dot
     from vis_tpu_torch.ops import quantized as qz
 
     dev = torch.device("cuda:0")
@@ -545,6 +617,7 @@ def case_cuda_kernels(inp):
             (got - want).abs().max().item(), want.abs().max().item(),
             _slab_bound(x, *slabs, 1), (swapped - want).abs().max().item(),
             float(torch.equal(got, qz.q4_fused_mlp_slab(x, *slabs, 1)))])
+    _int_dot_cases(inp, gen, out)
     torch.cuda.synchronize()
     refused = {}
     x = torch.randn((qz.MAX_KERNEL_ROWS + 1, 64), device=dev)
@@ -555,6 +628,7 @@ def case_cuda_kernels(inp):
     q8 = torch.zeros((8, 64), dtype=torch.int8, device=dev)
     s8 = torch.ones((8,), device=dev)
     x24 = torch.randn((2, 24), device=dev)
+    x8 = torch.zeros((qz.MAX_KERNEL_ROWS + 1, 64), dtype=torch.int8, device=dev)
     gu = qz.QuantizedWeight(torch.zeros((64, 64), dtype=torch.int8, device=dev),
                             torch.ones((64,), device=dev))
     dn = qz.QuantizedWeight(torch.zeros((64, 32), dtype=torch.int8, device=dev),
@@ -576,7 +650,19 @@ def case_cuda_kernels(inp):
                            torch.zeros((1, 48, 32), dtype=torch.uint8, device=dev),
                            torch.ones((1, 2, 48), device=dev),
                            torch.zeros((1, 64, 12), dtype=torch.uint8, device=dev),
-                           torch.ones((1, 2, 64), device=dev), 24), 0))):
+                           torch.ones((1, 2, 64), device=dev), 24), 0)),
+                       ("l_misaligned", lambda: int_dot.u8_sum(
+                           torch.zeros((64,), dtype=torch.uint8, device=dev)[1:49])),
+                       ("m_misaligned", lambda: int_dot.i8_matmul(
+                           x8[:2], torch.zeros((8 * 64 + 16,), dtype=torch.int8,
+                                               device=dev)[1:8 * 64 + 1].view(8, 64),
+                           torch.ones((1, 8), device=dev))),
+                       ("m_bf16", lambda: int_dot.i8_matmul(
+                           x[:2].to(torch.bfloat16), q8, torch.ones((1, 8), device=dev))),
+                       ("o_scale_rows", lambda: int_dot.q4_i8_matmul(
+                           x8[:2], q, torch.ones((1, 8), device=dev))),
+                       ("p_rows", lambda: int_dot.q4_i8s_matmul(
+                           x8, q, torch.ones((2, 8), device=dev)))):
         try:
             call()
             refused[name] = ""
@@ -587,9 +673,48 @@ def case_cuda_kernels(inp):
                                 fa.flash_attention.launches, qz.q8_matmul.launches,
                                 qz.fused_swiglu_mlp.launches, qz.q4_matmul_folded.launches,
                                 qz.q4_matmul_stacked_folded.launches, qz.i4_matmul.launches,
-                                qz.q4_fused_mlp_slab.launches])
+                                qz.q4_fused_mlp_slab.launches, int_dot.u8_sum.launches,
+                                int_dot.i8_matmul.launches, int_dot.q4_i8_matmul.launches,
+                                int_dot.q4_i8s_matmul.launches])
     out["ab_bits"] = np.array(json.dumps(_ab_bits(qz, json.loads(str(inp["ab_cases"])))))
     return out
+
+
+def _int_dot_cases(inp, gen, out) -> None:
+    """The int8 probe's kernels (L, M, O, P) against their plain versions on
+    the card: L's value, the library's int32 sum and whether the unwrapped
+    sum differs; for M, O and P whether each output is bit-equal, then
+    whether O with its x halves swapped, and O on P's reading, are equal to
+    the plain O and P (they must not be)."""
+    from vis_tpu_torch.ops import int_dot
+
+    dev = gen.device
+    for name, (rows, width, fill) in json.loads(str(inp["l_cases"])).items():
+        q = (torch.full((rows, width), fill, dtype=torch.uint8, device=dev) if fill >= 0 else
+             torch.randint(0, 256, (rows, width), generator=gen, device=dev, dtype=torch.uint8))
+        got = int_dot.u8_sum(q)
+        out[f"l/{name}"] = np.array([
+            float(torch.equal(got, int_dot.u8_sum_plain(q))),
+            float(got.item() == torch.sum(q, dtype=torch.int32).item()),
+            float(got.item() != q.sum(dtype=torch.int64).item())])
+    for name, (rows, out_dim, in_dim) in json.loads(str(inp["int_cases"])).items():
+        half = in_dim // 2
+        x8 = torch.randint(-127, 128, (rows, in_dim), generator=gen, device=dev, dtype=torch.int8)
+        q8 = torch.randint(-128, 128, (out_dim, in_dim), generator=gen, device=dev,
+                           dtype=torch.int8)
+        s1 = torch.rand((1, out_dim), generator=gen, device=dev) * 0.01
+        q4 = torch.randint(0, 256, (out_dim, half), generator=gen, device=dev, dtype=torch.uint8)
+        s2 = torch.rand((2, out_dim), generator=gen, device=dev) * 0.01
+        want_o = int_dot.q4_i8_matmul_plain(x8, q4, s2)
+        swapped = torch.cat([x8[:, half:], x8[:, :half]], dim=1)
+        out[f"int/{name}"] = np.array([
+            float(torch.equal(int_dot.i8_matmul(x8, q8, s1), int_dot.i8_matmul_plain(x8, q8, s1))),
+            float(torch.equal(int_dot.q4_i8_matmul(x8, q4, s2), want_o)),
+            float(torch.equal(int_dot.q4_i8s_matmul(x8, q4, s2),
+                              int_dot.q4_i8s_matmul_plain(x8, q4, s2))),
+            float(torch.equal(int_dot.q4_i8_matmul(swapped, q4, s2), want_o)),
+            float(torch.equal(int_dot.q4_i8_matmul(x8, q4, s2),
+                              int_dot.q4_i8s_matmul_plain(x8, q4, s2)))])
 
 
 def _ab_bits(qz, cases):

@@ -37,6 +37,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # name -> argtypes; every entry point returns int (cudaError_t).
 _SIGNATURES = {
     "vt_q4_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -48,6 +49,10 @@ _SIGNATURES = {
     "vt_q4_matmul_stacked_folded": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_i4_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_q4_fused_mlp": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "vt_u8_sum": (_P, _LL, _P, _P),
+    "vt_i8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_q4_i8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_q4_i8s_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lock = threading.Lock()

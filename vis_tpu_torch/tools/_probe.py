@@ -1,4 +1,4 @@
-"""What the int4 probe tools share: the 7B MLP stack's shapes, its random
+"""What the probe tools share: the 7B MLP stack's shapes, its random
 weights made on the device from a seed, the pass's SwiGLU, and the timing of
 one step, eager and as a replayed CUDA graph, with the kernel launches it
 made."""
@@ -12,6 +12,7 @@ from typing import Callable
 
 import torch
 
+from vis_tpu_torch.ops import int_dot
 from vis_tpu_torch.ops import quantized as qz
 
 HIDDEN, INTER, LAYERS, VOCAB = 3584, 18944, 28, 152064
@@ -21,7 +22,8 @@ SCALE = 0.01  # the probes' uniform int4 scale
 # Every wrapper a probe variant can reach, by name.
 WRAPPERS = (qz.q4_matmul, qz.q4_matmul_stacked, qz.q4_matmul_folded,
             qz.q4_matmul_stacked_folded, qz.i4_matmul, qz.q4_fused_mlp_slab,
-            qz.fused_swiglu_mlp)
+            qz.fused_swiglu_mlp, qz.q8_matmul, int_dot.u8_sum, int_dot.i8_matmul,
+            int_dot.q4_i8_matmul, int_dot.q4_i8s_matmul)
 
 
 @dataclasses.dataclass
