@@ -10,11 +10,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    nvcc per source, all at once);
 3. kernels: each kernel (A, B, C, D, E) against its plain PyTorch version
    at the shapes the main paths give it, with the tolerance stated, and
-   both timed, beside the least time the card could take (bound) and, for
-   C, PyTorch's scaled_dot_product_attention on the same inputs.  A
-   kernel's time is that of a run of launches captured into a CUDA graph
-   (``device_ms``), a plain version's that of a run of calls back to back
-   (``stream_ms``);
+   both timed, beside the least time the card could take (bound), its
+   share of that bound and one PyTorch call for the same function where
+   there is one (scaled_dot_product_attention for C, the int4 and int8
+   weight-only matmuls for A, B and D).  A runs every projection of both
+   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3) and is
+   also timed against the loop it ran before moving to the tensor cores
+   (kernel B's, through q4_matmul).  A kernel's time is that of a run of
+   launches captured into a CUDA graph (``device_ms``), a plain version's
+   that of a run of calls back to back (``stream_ms``);
 4. reference: the small Qwen2.5-VL profile and the small Llama text
    profile, int4 and int8, on the card against the same engines on the CPU
    (prefill logits, a lookahead window, one batched paged decode chunk);
@@ -132,6 +136,14 @@ PROJECTIONS = {
 }
 LAYERS = 28
 HEAD = (152064, 3584)
+# Llama-3.1-8B decoder projections, [out, in], which kernel A runs at the
+# explainer scheduler's B = 3.
+LLAMA_PROJECTIONS = {
+    "qkv": (6144, 4096),
+    "o": (4096, 4096),
+    "gate_up": (28672, 4096),
+    "down": (4096, 14336),
+}
 FLASH = dict(b=1, s=4096, h=16, d=80, length=3996)
 # The explainer's int8 vocab head: Llama-3.1-8B's 128256 rows padded to 128512.
 HEAD8 = (128512, 128256, 4096)
@@ -239,58 +251,78 @@ def phase_kernels() -> dict:
     """Each kernel against its plain version on the same inputs."""
     import torch
 
-    from vis_tpu_torch.ops import flash_attention as fa
-    from vis_tpu_torch.ops import quantized as qz
-    from vis_tpu_torch.serving.engine import random_q4
-
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    report = {}
+    return {"A": _kernel_a(gen, dev), "B": _kernel_b(gen, dev), "C": _kernel_c(gen, dev),
+            "D": _kernel_d(gen, dev), "E": _kernel_e(gen, dev)}
 
-    # A: every 7B projection, B in {1, 8}, layers 0 and 27.  Timing walks
-    # the 28 layers so each launch reads its weight from device memory, as
-    # a decode window does.
-    worst_a, times_a = 0.0, {}
-    for name, (out, inn) in PROJECTIONS.items():
-        w = random_q4(gen, LAYERS, out=out, inn=inn, device=dev)
-        q, scale = w.q, w.scale
-        for rows in (1, 8):
-            x = torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16)
-            for idx in (0, LAYERS - 1):
-                pick = qz.QuantizedWeight4Pick(q, scale, idx)
-                got = qz.q4_matmul_stacked(x, pick)
-                want = qz.q4_matmul_plain(x, q[idx], scale[idx])
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                tol = 1e-3 * want.abs().max().item()
-                print(f"[A] {name:8s} [{out}, {inn}] B={rows} idx={idx:2d}: "
-                      f"max|err| {err:.3e} <= tol {tol:.3e}")
-                if not err <= tol:
-                    raise AssertionError(f"kernel A {name} B={rows} idx={idx}: {err} > {tol}")
-                worst_a = max(worst_a, err)
-            ms = device_ms(lambda i: qz.q4_matmul_stacked(
-                x, qz.QuantizedWeight4Pick(q, scale, i % LAYERS)), 56)
-            plain = stream_ms(lambda i: qz.q4_matmul_plain(
-                x, q[i % LAYERS], scale[i % LAYERS]), 28)
-            gbps = (q[0].numel() + scale[0].numel() * 4) / (ms * 1e-3) / 1e9
-            times_a[(name, rows)] = (ms, plain)
-            print(f"[A] {name:8s} B={rows}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of "
-                  f"weight), plain {plain:.4f} ms")
-            if (name, rows) == ("gate_up", 8):
-                library_a = _library_int4(f"gate_up B={rows}", x, [
+
+def _kernel_a(gen, dev) -> dict:
+    """A at every projection of both models: Qwen2.5-VL-7B at B = 1 and 8
+    (the inspector's lookahead windows), Llama-3.1-8B at B = 3 (the
+    scheduler's slots), each held to its plain version at layers 0 and 27
+    (max|err| <= 1e-3 * max|y|: only the order of the f32 sums differs).
+    Timing walks the 28 layers so each launch reads its weight from device
+    memory, as a decode window does.  Beside the kernel: its plain version,
+    its bound, torch._weight_int4pack_mm on the same weights, and the loop
+    A ran before it moved to the tensor cores, which kernel B still runs
+    (q4_row_rounded), launched through q4_matmul on the same layer views."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.serving.engine import random_q4
+
+    worst, table = 0.0, {}
+    for model, projections, batches in (("qwen", PROJECTIONS, (1, 8)),
+                                        ("llama", LLAMA_PROJECTIONS, (3,))):
+        for name, (out, inn) in projections.items():
+            w = random_q4(gen, LAYERS, out=out, inn=inn, device=dev)
+            q, scale = w.q, w.scale
+            for rows in batches:
+                x = torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16)
+                for idx in (0, LAYERS - 1):
+                    got = qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q, scale, idx))
+                    want = qz.q4_matmul_plain(x, q[idx], scale[idx])
+                    torch.cuda.synchronize()
+                    err = (got - want).abs().max().item()
+                    tol = 1e-3 * want.abs().max().item()
+                    print(f"[A] {model} {name:8s} [{out}, {inn}] B={rows} idx={idx:2d}: "
+                          f"max|err| {err:.3e} <= tol {tol:.3e}")
+                    if not err <= tol:
+                        raise AssertionError(f"kernel A {model} {name} B={rows} idx={idx}: "
+                                             f"{err} > {tol}")
+                    worst = max(worst, err)
+                ms = device_ms(lambda i: qz.q4_matmul_stacked(
+                    x, qz.QuantizedWeight4Pick(q, scale, i % LAYERS)), 56)
+                old = device_ms(lambda i: qz.q4_matmul(x, q[i % LAYERS], scale[i % LAYERS]), 56)
+                plain = stream_ms(lambda i: qz.q4_matmul_plain(
+                    x, q[i % LAYERS], scale[i % LAYERS]), 28)
+                library = _library_int4(f"{model} {name} B={rows}", x, [
                     (_split_values(q[i]), scale[i][:, 0], scale[i][:, 1]) for i in range(3)],
-                    tag="A")
-        del w, q, scale
-    out, inn = PROJECTIONS["gate_up"]
-    bound_a = bound(out * inn // 2 + out * 2 * 4 + 8 * inn * 2 + 8 * out * 4, 2 * 8 * out * inn)
-    print(f"[A] gate_up B=8 bound {bound_a[0]:.4f} ms ({bound_a[1]})")
-    report["A"] = dict(err=worst_a, ms=times_a[("gate_up", 8)][0],
-                       plain_ms=times_a[("gate_up", 8)][1], bound=bound_a,
-                       library_ms=library_a, table=times_a)
+                    calls=56, tag="A")
+                weight = q[0].numel() + scale[0].numel() * 4
+                limit = bound(weight + rows * inn * 2 + rows * out * 4, 2 * rows * out * inn)
+                table[(model, name, rows)] = (ms, plain, limit, library, old)
+                print(f"[A] {model} {name:8s} [{out}, {inn}] B={rows}: kernel {ms:.4f} ms "
+                      f"({weight / (ms * 1e-3) / 1e9:.0f} GB/s of weight, {limit[0] / ms:.1%} of "
+                      f"bound {limit[0]:.4f} ms ({limit[1]})), plain {plain:.4f} ms, library "
+                      f"{library:.4f} ms (kernel/library {ms / library:.2f}x), old loop "
+                      f"{old:.4f} ms (kernel/old {ms / old:.2f}x)")
+            del w, q, scale
+            torch.cuda.empty_cache()
+    ms, plain, limit, library, _ = table[("qwen", "gate_up", 8)]
+    return dict(err=worst, ms=ms, plain_ms=plain, bound=limit, library_ms=library, table=table)
 
-    # B: the int4 vocab head, B = 1.  A and B are also timed against PyTorch's
-    # int4 matmul on the same weights (``_library_int4``).
+
+def _kernel_b(gen, dev) -> dict:
+    """B: the int4 vocab head, B = 1, beside PyTorch's int4 matmul on the
+    same weights (``_library_int4``)."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.serving.engine import random_q4
+
     w = random_q4(gen, out=HEAD[0], inn=HEAD[1], device=dev)
     q, scale = w.q, w.scale
     x = torch.randn((1, HEAD[1]), generator=gen, device=dev).to(torch.bfloat16)
@@ -305,26 +337,33 @@ def phase_kernels() -> dict:
     ms = device_ms(lambda i: qz.q4_matmul(x, q, scale), 30)
     plain = stream_ms(lambda i: qz.q4_matmul_plain(x, q, scale), 10)
     gbps = (q.numel() + scale.numel() * 4) / (ms * 1e-3) / 1e9
-    bound_b = bound(q.numel() + scale.numel() * 4 + HEAD[1] * 2 + HEAD[0] * 4,
-                    2 * HEAD[0] * HEAD[1])
+    limit = bound(q.numel() + scale.numel() * 4 + HEAD[1] * 2 + HEAD[0] * 4,
+                  2 * HEAD[0] * HEAD[1])
     print(f"[B] head B=1: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), plain {plain:.4f} ms, "
-          f"bound {bound_b[0]:.4f} ms ({bound_b[1]})")
-    library_b = _library_int4("head B=1", x, [(_split_values(q), scale[:, 0], scale[:, 1])],
-                              tag="B")
-    report["B"] = dict(err=err, ms=ms, plain_ms=plain, bound=bound_b, library_ms=library_b)
-    del w, q, scale
+          f"bound {limit[0]:.4f} ms ({limit[1]})")
+    library = _library_int4("head B=1", x, [(_split_values(q), scale[:, 0], scale[:, 1])],
+                            tag="B")
+    return dict(err=err, ms=ms, plain_ms=plain, bound=limit, library_ms=library)
 
-    # C: the vision tower's full-attention shape, non-causal, then causal.
-    # Every query row is compared (the rows past the length attend the
-    # valid keys too) and held to max|err| <= 2e-2 and, as bf16 rounds each
-    # output to a share of its own size, each (query, head) row to
-    # max|err| <= 2^-6 * max|ref| over that row.  The row bound is what
-    # sees a broken mask where outputs are small: each case runs the kernel
-    # with a mask dropped (the lengths, and in the causal case the
-    # diagonal) and requires it to miss the masked reference by more.
+
+def _kernel_c(gen, dev) -> dict:
+    """C: the vision tower's full-attention shape, non-causal, then causal.
+    Every query row is compared (the rows past the length attend the valid
+    keys too) and held to max|err| <= 2e-2 and, as bf16 rounds each output
+    to a share of its own size, each (query, head) row to max|err| <= 2^-6 *
+    max|ref| over that row.  The row bound is what sees a broken mask where
+    outputs are small: each case runs the kernel with a mask dropped (the
+    lengths, and in the causal case the diagonal) and requires it to miss
+    the masked reference by more.  Beside the kernel: its plain version, its
+    bound, its rate on the valid keys, and PyTorch's
+    scaled_dot_product_attention on the same inputs and key mask."""
+    import torch
+
+    from vis_tpu_torch.ops import flash_attention as fa
+
     b, s, h, d, n = (FLASH[k] for k in ("b", "s", "h", "d", "length"))
     tol_c = 2.0 ** -6
-    worst_c, times_c = 0.0, {}
+    worst, times = 0.0, {}
     for causal in (False, True):
         qkv = [torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
                for _ in range(3)]
@@ -349,18 +388,18 @@ def phase_kernels() -> dict:
                 raise AssertionError(f"kernel C check misses a dropped {mask} mask: "
                                      f"{miss} <= {tol_c}")
         del dropped
-        worst_c = max(worst_c, err)
+        worst = max(worst, err)
         ms = device_ms(lambda i: fa.flash_attention(*qkv, lengths, causal=causal), 20)
         plain = stream_ms(lambda i: fa.flash_attention_reference(
             *qkv, lengths, causal=causal), 10)
         # Operations on the valid keys: every query row attends the n
         # valid keys (the causal case about half of them).
         flops = 4 * s * n * d * h * b * (0.5 if causal else 1.0)
-        bound_c = bound(4 * b * s * h * d * 2 + 4, flops)
+        limit = bound(4 * b * s * h * d * 2 + 4, flops)
         print(f"[C] causal={causal}: kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
-              f"TFLOP/s on valid keys), plain {plain:.4f} ms, bound {bound_c[0]:.4f} ms "
-              f"({bound_c[1]})")
-        times_c[causal] = (ms, plain, bound_c)
+              f"TFLOP/s on valid keys, {limit[0] / ms:.1%} of bound {limit[0]:.4f} ms "
+              f"({limit[1]})), plain {plain:.4f} ms")
+        times[causal] = (ms, plain, limit)
     # The yardstick, timed here only: PyTorch's fused attention on the same
     # inputs and key mask (non-causal), in [b, h, s, d].
     q_t, k_t, v_t = (a.transpose(1, 2) for a in qkv)
@@ -370,21 +409,25 @@ def phase_kernels() -> dict:
                - fa.flash_attention_reference(*qkv, lengths, causal=False).float()
                ).abs().max().item()
     library = device_ms(lambda i: sdpa(q_t, k_t, v_t, attn_mask=keep), 20)
+    ms, plain, limit = times[False]
     print(f"[C] library scaled_dot_product_attention (non-causal, key mask): {library:.4f} ms "
-          f"(max|err| vs plain {lib_err:.3e})")
-    report["C"] = dict(err=worst_c, ms=times_c[False][0], plain_ms=times_c[False][1],
-                       bound=times_c[False][2], library_ms=library)
-    del qkv, q_t, k_t, v_t
+          f"(max|err| vs plain {lib_err:.3e}); kernel/library {ms / library:.2f}x")
+    return dict(err=worst, ms=ms, plain_ms=plain, bound=limit, library_ms=library)
 
-    # D: the int8 vocab head at B = 1 (end of prefill) and B = 3 (batched
-    # decode).  Only the order of the f32 sums differs from the plain
-    # version: max|err| <= 1e-3 * max|y|, and the 256 zero-padded rows must
-    # come out exactly 0.
+
+def _kernel_d(gen, dev) -> dict:
+    """D: the int8 vocab head at B = 1 (end of prefill) and B = 3 (batched
+    decode).  Only the order of the f32 sums differs from the plain version:
+    max|err| <= 1e-3 * max|y|, and the 256 zero-padded rows must come out
+    exactly 0."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
     from vis_tpu_torch.serving.engine import random_q8
 
     rows, vocab, inn = HEAD8
     w = random_q8(gen, rows, vocab, inn, device=dev)
-    worst_d, times_d = 0.0, {}
+    worst, times = 0.0, {}
     for batch in (1, 3):
         x = torch.randn((batch, inn), generator=gen, device=dev).to(torch.bfloat16)
         got = qz.q8_matmul(x, w.q, w.scale)
@@ -397,22 +440,19 @@ def phase_kernels() -> dict:
               f"padded rows max|y| {pad} == 0")
         if not (err <= tol and pad == 0.0):
             raise AssertionError(f"kernel D B={batch}: err {err} > {tol} or padded {pad}")
-        worst_d = max(worst_d, err)
+        worst = max(worst, err)
         ms = device_ms(lambda i: qz.q8_matmul(x, w.q, w.scale), 30)
         plain = stream_ms(lambda i: qz.q8_matmul_plain(x, w.q, w.scale), 10)
         gbps = (w.q.numel() + w.scale.numel() * 4) / (ms * 1e-3) / 1e9
         print(f"[D] head B={batch}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), "
               f"plain {plain:.4f} ms")
-        times_d[batch] = (ms, plain)
-    bound_d = bound(w.q.numel() + w.scale.numel() * 4 + 3 * inn * 2 + 3 * rows * 4,
-                    2 * 3 * rows * inn)
-    print(f"[D] head B=3 bound {bound_d[0]:.4f} ms ({bound_d[1]})")
-    library_d = _library_int8("head B=3", x, [(w.q, w.scale)], tag="D")
-    report["D"] = dict(err=worst_d, ms=times_d[3][0], plain_ms=times_d[3][1], bound=bound_d,
-                       library_ms=library_d)
-    del w
-    report["E"] = _kernel_e(gen, dev)
-    return report
+        times[batch] = (ms, plain)
+    limit = bound(w.q.numel() + w.scale.numel() * 4 + 3 * inn * 2 + 3 * rows * 4,
+                  2 * 3 * rows * inn)
+    print(f"[D] head B=3 bound {limit[0]:.4f} ms ({limit[1]})")
+    library = _library_int8("head B=3", x, [(w.q, w.scale)], tag="D")
+    return dict(err=worst, ms=times[3][0], plain_ms=times[3][1], bound=limit,
+                library_ms=library)
 
 
 def _kernel_e(gen, dev) -> dict:

@@ -15,6 +15,7 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "vis_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 # Every file of the port, and the scripts that drive it with vis_tpu blocked.
 STANDALONE_FILES = PORT_FILES + [REPO / "tools" / "profile_port_decode.py",
+                                 REPO / "tools" / "compare_slices.py",
                                  REPO / "tests" / "torch_port_runner.py"]
 KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n
                   for n in ("quantized.py", "flash_attention.py", "int_dot.py")]

@@ -3,9 +3,10 @@ and ragged shapes the slice does not reach (odd row counts, widths that are
 no multiple of the block, a batch row with no valid key).  They need an
 NVIDIA GPU and nvcc, and skip elsewhere:
 
-    python -m pytest -m cuda tests/test_torch_cuda_kernels.py
+    python -m pytest -m cuda tests/test_torch_cuda_kernels.py --noconftest
 
-Tolerances: the int4 and int8 kernels differ from their plain version
+(``--noconftest`` on a machine with a card and no jax: the conftest imports
+it).  Tolerances: the int4 and int8 kernels differ from their plain version
 only in the order of the f32 sums, max|err| <= 1e-4 * max|y|, and int8
 rows padded with zeros (scale 0) give exactly 0; the fused int8 MLP (E)
 returns bf16 and rounds h to bf16 inside, so a sum in another order can
@@ -22,14 +23,22 @@ bit for bit.  The int8 probe's kernels: the byte sum (L) equals its plain
 version and torch.sum(dtype=int32) bit for bit, and the large cases wrap;
 M, O and P have exact int32 sums and an epilogue of rounded (never fused)
 operations, so they equal their plain versions bit for bit, and O with its
-x halves swapped, or on P's reading of the bytes, must not.  Kernels A and B give the same output bits as before the
-folded kernels were added to their source (SHA-256 of their outputs on
-seeded inputs, measured on an NVIDIA H100 80GB HBM3 with the parent
-source).  Flash attention reads and
-writes bf16 (unit-normal inputs) and rounds its probabilities before the
-P.V product; all query rows are compared, to max|err| <= 2e-2 and each
-output row to max|err| <= 2^-6 * max|ref| over that row, as chip_smoke.py
-holds it.
+x halves swapped, or on P's reading of the bytes, must not.  The outputs of
+kernels A and B are pinned by SHA-256 digests of their bytes on seeded
+inputs, measured on an NVIDIA H100 80GB HBM3.  B's digest is the one it
+had before the folded kernels were added to its source.  A's digest was
+measured anew when A moved to the tensor cores: the mma.sync kernel sums
+each output in another order (sixteen-input tensor-core products, the K
+splits added in warp order), so its f32 bits differ from the one-warp-a-row
+loop's, within the same 1e-4 * max|y| of the plain version.  Every int4 case
+runs twice and must give the same bits.  Flash attention reads and writes
+bf16 (unit-normal inputs) and rounds its probabilities before the P.V
+product; all query rows are compared, to max|err| <= 2e-2 and each output
+row to max|err| <= 2^-6 * max|ref| over that row, as chip_smoke.py holds it,
+a second run must give the same bits, and the cases include lengths inside
+the first 64-key tile, on a tile edge and 0, a sequence of 192 (the
+kernel's last 128-row query tile then holds 64 rows) and a negative
+sm_scale (the wrapper folds its sign into q).
 """
 
 import json
@@ -47,6 +56,18 @@ Q4_CASES = {  # name: (rows, out, in, stacked layers or 0)
     "single-128x64x1024": (128, 64, 1024, 0),
     "stacked-2x72x32": (2, 72, 32, 3),
     "stacked-8x520x768": (8, 520, 768, 3),
+    # Kernel A at B = 1, 3, 8, 9, 16 and 128 (one, two and four n-tiles, four
+    # passes), O not a multiple of 16 x 8 warps, the Llama-3.1-8B widths (qkv,
+    # and down with two x slabs), Qwen's down (nine slabs, 8 K splits), and
+    # O past 2112 tiles (a warp a tile, 9-warp blocks; the last tile ragged).
+    "stacked-1x200x512": (1, 200, 512, 2),
+    "stacked-3x6144x4096": (3, 6144, 4096, 2),
+    "stacked-3x4100x14336": (3, 4100, 14336, 2),
+    "stacked-8x3584x18944": (8, 3584, 18944, 2),
+    "stacked-5x37880x512": (5, 37880, 512, 2),
+    "stacked-9x1000x256": (9, 1000, 256, 2),
+    "stacked-16x520x4096": (16, 520, 4096, 2),
+    "stacked-128x1000x1024": (128, 1000, 1024, 2),
 }
 Q8_CASES = {  # name: (rows, out, in, zero-padded rows at the end)
     "1x200x512": (1, 200, 512, 8),
@@ -98,12 +119,19 @@ AB_CASES = {  # name: (rows, out, in, stacked layers or 0); B single, A stacked
 }
 AB_BITS = {
     "B-3x4096x3584": "1f67c89d4ac7547d19d8f6c1232de9d59dddbcced96d196bf9ad242cf6b7a2df",
-    "A-8x4608x3584": "f23af955dd4e9ba2d9ecd6ca0777ff09c706de484cf23740df83844715899900",
+    "A-8x4608x3584": "60b4e63647270f65df0b89447fce1b07a262250a27deda9d1de09bb3f14f6e74",
 }
-FLASH_CASES = {  # name: (head_dim, causal, per-batch lengths or None); b=2, s=256, h=3
-    f"d{d}-{'causal' if causal else 'full'}-{'all' if lens is None else 'ragged'}":
-        (d, causal, lens)
-    for d in (64, 80) for causal in (False, True) for lens in (None, (200, 0))
+FLASH_LENGTHS = {  # name: per-batch valid lengths (b=2) or None for all valid
+    "all": None,
+    "ragged": (200, 0),
+    "edges": (37, 128),   # inside the first 64-key tile; on a tile edge
+    "edge0": (64, 0),     # one whole tile; no valid key
+}
+FLASH_CASES = {  # name: (head_dim, causal, lengths, sequence length); b=2, h=3
+    f"d{d}-{'causal' if causal else 'full'}-{lens}{'' if s == 256 else f'-s{s}'}":
+        (d, causal, FLASH_LENGTHS[lens], s)
+    for d in (64, 80) for causal in (False, True) for lens in FLASH_LENGTHS
+    for s in (256, 192)  # 192: the kernel's last 128-row query tile holds 64 rows
 }
 
 
@@ -127,8 +155,9 @@ def card(tmp_path_factory):
 
 @pytest.mark.parametrize("name", list(Q4_CASES))
 def test_q4_kernel_matches_plain(card, name):
-    err, scale = card[f"q4/{name}"].tolist()
+    err, scale, repeatable = card[f"q4/{name}"].tolist()
     assert err <= 1e-4 * scale, (err, scale)
+    assert repeatable == 1.0  # a second run gives the same bits
 
 
 @pytest.mark.parametrize("name", list(Q8_CASES))
@@ -148,10 +177,15 @@ def test_fused_mlp_kernel_matches_plain(card, name):
 
 @pytest.mark.parametrize("name", list(FLASH_CASES))
 def test_flash_kernel_matches_plain(card, name):
-    row_err, err, empty_row = card[f"flash/{name}"].tolist()
+    row_err, err, empty_row, repeatable = card[f"flash/{name}"].tolist()
     assert err <= 2e-2, err
     assert row_err <= 2.0 ** -6, row_err
     assert empty_row == 0.0
+    assert repeatable == 1.0
+
+
+def test_flash_kernel_takes_a_negative_scale(card):
+    assert card["flash_negative_scale"].item() <= 2.0 ** -6
 
 
 @pytest.mark.parametrize("name", list(FOLD_CASES))
@@ -207,9 +241,9 @@ def test_kernels_refuse_what_they_do_not_take(card):
 
 def test_each_case_counted_one_launch(card):
     assert card["launches"].tolist() == [
-        sum(1 for *_, layers in Q4_CASES.values() if not layers),
-        sum(1 for *_, layers in Q4_CASES.values() if layers),
-        len(FLASH_CASES),
+        2 * sum(1 for *_, layers in Q4_CASES.values() if not layers),  # checked, repeated
+        2 * sum(1 for *_, layers in Q4_CASES.values() if layers),
+        2 * len(FLASH_CASES) + 1,  # the checked run and the repeat; the negative scale
         len(Q8_CASES),
         3 * len(E_CASES),  # the checked run, the gate/up-swapped run, the repeat
         sum(1 for *_, layers in FOLD_CASES.values() if not layers),

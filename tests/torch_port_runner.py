@@ -530,12 +530,16 @@ def case_cuda_kernels(inp):
         scale = torch.rand((*lead, out_dim, 2), generator=gen, device=dev) * 0.01
         x = torch.randn((rows, in_dim), generator=gen, device=dev)
         if layers:
-            got = qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q, scale, layers - 1))
+            def run():
+                return qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q, scale, layers - 1))
             want = qz.q4_matmul_plain(x, q[layers - 1], scale[layers - 1])
         else:
-            got, want = qz.q4_matmul(x, q, scale), qz.q4_matmul_plain(x, q, scale)
+            def run():
+                return qz.q4_matmul(x, q, scale)
+            want = qz.q4_matmul_plain(x, q, scale)
+        got = run()
         out[f"q4/{name}"] = np.array([(got - want).abs().max().item(),
-                                      want.abs().max().item()])
+                                      want.abs().max().item(), float(torch.equal(got, run()))])
     for name, (rows, out_dim, in_dim, padded) in json.loads(str(inp["q8_cases"])).items():
         q = torch.randint(-128, 128, (out_dim, in_dim), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -546,17 +550,23 @@ def case_cuda_kernels(inp):
         out[f"q8/{name}"] = np.array([(got - want).abs().max().item(), want.abs().max().item(),
                                       got[:, out_dim - padded:].abs().max().item()
                                       if padded else 0.0])
-    for name, (d, causal, lens) in json.loads(str(inp["flash_cases"])).items():
-        q, k, v = (torch.randn((2, 256, 3, d), generator=gen, device=dev).to(torch.bfloat16)
+    for name, (d, causal, lens, seq) in json.loads(str(inp["flash_cases"])).items():
+        q, k, v = (torch.randn((2, seq, 3, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         lengths = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
         got = fa.flash_attention(q, k, v, lengths, causal=causal)
         want = fa.flash_attention_reference(q, k, v, lengths, causal=causal)
-        valid = [256, 256] if lens is None else list(lens)
+        valid = [seq, seq] if lens is None else list(lens)
         empty = [got[b].float().abs().max().item() for b, n in enumerate(valid) if n == 0]
         out[f"flash/{name}"] = np.array([
             fa.row_relative_error(got, want),
-            (got.float() - want.float()).abs().max().item(), max(empty, default=0.0)])
+            (got.float() - want.float()).abs().max().item(), max(empty, default=0.0),
+            float(torch.equal(got, fa.flash_attention(q, k, v, lengths, causal=causal)))])
+    # A negative sm_scale, which the wrapper folds into q.
+    lengths = torch.tensor([100, 256], dtype=torch.int32, device=dev)
+    out["flash_negative_scale"] = np.array(fa.row_relative_error(
+        fa.flash_attention(q, k, v, lengths, sm_scale=-0.05),
+        fa.flash_attention_reference(q, k, v, lengths, sm_scale=-0.05)))
     for name, (rows, hidden, inter) in json.loads(str(inp["e_cases"])).items():
         gq = torch.randint(-128, 128, (2 * inter, hidden), generator=gen, device=dev,
                            dtype=torch.int8)
@@ -1176,6 +1186,60 @@ def case_refusals(inp):
         engine = E.build_small_text_engine("x", "cpu", 0, "int4", "int8", config=cfg,
                                            settings=settings)
         out[name] = refused(engine.attach_scheduler)
+    return {k: np.array(v) for k, v in out.items()}
+
+
+def _same_params(a, b) -> bool:
+    """Two parameter trees (dicts, lists, tensors, quantized weights) hold
+    equal values."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_params(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_same_params(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and torch.equal(a, b)
+    return type(a) is type(b) and torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)
+
+
+def case_checkpoint(inp):
+    """find_checkpoint on each directory layout under ``root``; build_engine
+    under CHECKPOINT_DIR=``served`` (safetensors for both roles' models),
+    which it must refuse, and under CHECKPOINT_DIR=``other`` (safetensors
+    for another model only), where it must build what the small profile
+    builds without any checkpoint."""
+    os.environ.update({"DEV_PROFILE": "small", "QUANTIZATION": "int4",
+                       "KV_QUANTIZATION": "none", "LOG_TO_FILE": "false"})
+    from vis_tpu_torch.models.loader import find_checkpoint
+    from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.utils.config import get_config
+
+    root = Path(str(inp["root"]))
+    out = {}
+    for name in json.loads(str(inp["layouts"])):
+        found = find_checkpoint(str(inp["model"]), root / name)
+        out[f"found/{name}"] = "" if found is None else str(found.relative_to(root / name))
+    models = json.loads(str(inp["models"]))
+    os.environ["CHECKPOINT_DIR"] = str(inp["served"])
+    get_config(reload=True)
+    for role, model in models.items():
+        try:
+            E.build_engine(role, model, "cpu")
+            out[f"refused/{role}"] = ""
+        except NotImplementedError as exc:
+            out[f"refused/{role}"] = str(exc)
+    os.environ["CHECKPOINT_DIR"] = str(inp["other"])
+    cfg = get_config(reload=True)
+    for role, model in models.items():
+        built = E.build_engine(role, model, "cpu")
+        settings = E.ServingSettings.from_app_config()
+        if role == "inspector":
+            plain = E.build_small_engine(role, "cpu", 0, cfg.quantization, E._vocab_mode(role),
+                                         settings)
+        else:
+            plain = E.build_small_text_engine(role, "cpu", 0, cfg.quantization,
+                                              E._vocab_mode(role), settings=settings)
+        out[f"unchanged/{role}"] = json.dumps(
+            [built.name == plain.name, _same_params(built.params, plain.params)])
     return {k: np.array(v) for k, v in out.items()}
 
 

@@ -13,10 +13,10 @@
 //                                                 -> entry vt_q4_matmul_folded
 //   F: tools/probe_stacked_fused.py:_q4_stacked_folded_kernel (layer `idx`)
 //                                                 -> entry vt_q4_matmul_stacked_folded
-// A and B share q4_row_rounded(), F, I and J q4_row_folded(); the entries
-// differ only in their kernel symbol, so a profiler and the launch counters
-// can tell them apart.  The stacked entries are handed the picked layer's
-// pointer: in torch `stack.q[idx]` is a view.
+// B runs q4_row_rounded(), F, I and J q4_row_folded(); A has a kernel of
+// its own on the tensor cores (q4_stacked_mma_kernel, below).  The stacked
+// entries are handed the picked layer's pointer: in torch `stack.q[idx]` is
+// a view.
 //
 // Weight layout (same bytes as the JAX package): q[o, j] packs input j in the
 // low nibble and input j + I/2 in the high nibble, both stored as value + 8.
@@ -32,23 +32,58 @@
 // unsigned nibble n in [0, 15] times bf16 x, summed in f32, the -8 bias
 // folded into a sum of x, and the scale applied once after the sum,
 //     y = (sum x_lo n_lo - 8 sum x_lo) s_lo + (sum x_hi n_hi - 8 sum x_hi) s_hi.
-// Each lane keeps four partial sums per batch row for it.  A's and B's loop
-// is the one they had before the folded kernels were added (same output bits).
+// Each lane keeps four partial sums per batch row for it.  B's loop is the
+// one it had before the folded kernels were added (same output bits).
 //
-// What bounds it: at the decode shapes (B = 1 or 8 rows) the kernel streams
+// What bounds them: at the decode shapes (B = 1 to 8 rows) a kernel streams
 // O * I/2 bytes of packed weight plus 8 bytes of scale per row and does
 // 2 * B * O * I flops, far below the ~295 flop/byte where an H100 turns
-// compute-bound, so it is bound by weight bytes.  The design therefore reads
+// compute-bound, so it is bound by weight bytes.  The row functions read
 // each weight byte exactly once, 16 bytes per lane and 512 contiguous bytes
-// per warp, keeps all B rows' partial sums in registers, and reads x (at most
-// 8 x 18944 bf16 = 303 KB for down_proj, above the 227 KB of shared memory a
-// block may have) through L1/L2 instead of staging it.  One warp owns one
-// output row; a block holds 8 warps.  A simple, correct first version: no
-// tensor cores, no cp.async pipelining.
+// per warp, keep all B rows' partial sums in registers, and read x through
+// L1/L2.  One warp owns one output row; a block holds 8 warps.  Their cost
+// grows with B, not with the weight: each lane dequantizes 32 values per 16
+// bytes, then re-reads 64 bytes of x and does 32 FFMAs for every batch row.
+//
+// Kernel A (q4_stacked_mma_kernel) removes that growth.  It computes
+// y^T = W . x^T with mma.sync.m16n8k16 (bf16 -> f32): a warp's 16 output
+// rows are the M operand and 8 batch rows of x the N operand, so B <= 8 fills
+// one n-tile, and each weight value is dequantized once, into the A
+// fragment, whatever B is.  A dot product does not care about the order of
+// k, so the fragment's k positions are permuted to the bytes a lane already
+// holds: lane (g, t) loads 16 contiguous bytes of rows g and g + 8 at byte
+// offset 16t of the warp's 64-byte chunk (a quad reads 64 contiguous bytes
+// of a row), and word m of them feeds two products, the low nibbles
+// (inputs j..j+3, j = chunk + 16t + 4m) and the high nibbles (inputs
+// half + j..).  x's B fragment is read from shared memory with the same
+// permutation: 8 contiguous bytes of batch row g.  The weight layout
+// [L, O, I/2] is the one the model stores; nothing is repacked.
+//   - Dequantization gives the bits of dequant() below: (n - 8) exactly by
+//     the 0x4B000000 magic (one PRMT, one FADD), one FMUL by s, and
+//     cvt.rn.bf16x2.f32 for two values.
+//   - x is staged once per block in shared memory, in K-slabs of at most
+//     kSlabBudget bytes (down's x at B = 8 is 303 KB), rows padded by 16
+//     bytes so that a quarter-warp's 16-byte reads hit 8 distinct bank groups.
+//     (Double-buffering the slabs in two halves of that budget, or staging a
+//     slab in groups that the warps wait for in turn, ran slower on the H100.)
+//   - With enough 16-row tiles (at least 8 a SM: gate_up 2368 and 1792)
+//     each warp takes a tile and its whole K, in blocks of 8 to 20 warps
+//     sized so that the busiest SM gets the fewest tiles: one block of 18
+//     warps a SM at Qwen's gate_up, where 8-warp blocks, two a SM, would
+//     leave a second wave of 32 blocks on 32 SMs.  With fewer tiles (o, down
+//     and qkv: 224-384) 8-warp blocks, two a SM, split K between their warps
+//     (2, 4 or 8 ways), and the partial sums are added in shared memory in
+//     warp order: no atomics, the same bits every run.
+//   - Each lane keeps the next two chunks' weight loads (4 x 16 bytes) in
+//     flight while it computes the current one.
+//   - B > 8 runs 2 or 4 n-tiles a block (up to 32 batch rows) and more rows
+//     in blocks of their own (grid y).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
@@ -84,7 +119,7 @@ __device__ __forceinline__ int warp_row(int O) {
   return o < O ? o : -1;
 }
 
-// A, B: each weight rounded to bf16 before the product (the JAX package's
+// B: each weight rounded to bf16 before the product (the JAX package's
 // dequantized weight), one f32 sum per batch row.
 __device__ __forceinline__ void q4_row_rounded(const __nv_bfloat16* __restrict__ x,
                                                const uint8_t* __restrict__ qrow,
@@ -199,7 +234,7 @@ __device__ __forceinline__ void q4_row_folded(const __nv_bfloat16* __restrict__ 
   }
 }
 
-// A and B take scale [O, 2] = {s_lo, s_hi} per row.
+// B takes scale [O, 2] = {s_lo, s_hi} per row.
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
     q4_matmul_kernel(const __nv_bfloat16* x, const uint8_t* q,
                      const float* scale, float* y, int B, int O, int half) {
@@ -209,14 +244,308 @@ __global__ void __launch_bounds__(kWarpsPerBlock * 32)
                  y, B, O, o, half);
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    q4_matmul_stacked_kernel(const __nv_bfloat16* x, const uint8_t* q,
-                             const float* scale, float* y, int B, int O,
-                             int half) {
-  const int o = warp_row(O);
-  if (o < 0) return;
-  q4_row_rounded(x, q + static_cast<size_t>(o) * half, scale[2 * o], scale[2 * o + 1],
-                 y, B, O, o, half);
+// ---------------------------------------------------------------------------
+// A: the stacked int4 matvec on the tensor cores (see the file's head).
+// ---------------------------------------------------------------------------
+
+constexpr int kAWarps = 8;                // warps a block when K is split or B > 8
+constexpr int kAMaxWarps = 20;            // a block's warps at most (one a tile, B <= 8)
+constexpr int kChunk = 64;                // packed bytes of a row per warp step
+constexpr int kSlabBudget = 72 * 1024;    // bytes of x a block stages at once
+constexpr int kMaxPassRows = 32;          // batch rows a block takes (4 n-tiles)
+constexpr int kASmemMax = kSlabBudget + kMaxPassRows * 16;
+
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+// d[16x8] += a[16x16] . b[16x8], bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// n - 8 for the nibble in byte `Byte` of `nibbles` (each byte holds one
+// nibble): 0x4B0000nn is 2^23 + n as a float, exactly.
+template <int Byte>
+__device__ __forceinline__ float centred(uint32_t nibbles) {
+  return __int_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7650 | Byte)) - 8388616.0f;
+}
+
+// bf16x2 {bf16((n0 - 8) * s), bf16((n1 - 8) * s)} for bytes B0, B1: the bits
+// dequant() gives each value.
+template <int B0, int B1>
+__device__ __forceinline__ uint32_t dequant2(uint32_t nibbles, float s) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(centred<B0>(nibbles) * s, centred<B1>(nibbles) * s);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The A fragments of word m of a lane's 16 bytes of rows g (w0) and g + 8
+// (w1): a_lo holds the low-nibble values, a_hi the high-nibble ones.
+// Fragment registers 0 / 2 are row g at k-slots (2t, 2t+1) / (2t+8, 2t+9),
+// i.e. bytes (4m, 4m+1) / (4m+2, 4m+3); registers 1 / 3 the same for row g + 8.
+__device__ __forceinline__ void dequant_word(uint32_t w0, uint32_t w1, float s0_lo, float s0_hi,
+                                             float s1_lo, float s1_hi, uint32_t (&a_lo)[4],
+                                             uint32_t (&a_hi)[4]) {
+  const uint32_t n0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
+  const uint32_t n1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
+  a_lo[0] = dequant2<0, 1>(n0, s0_lo);
+  a_lo[1] = dequant2<0, 1>(n1, s1_lo);
+  a_lo[2] = dequant2<2, 3>(n0, s0_lo);
+  a_lo[3] = dequant2<2, 3>(n1, s1_lo);
+  a_hi[0] = dequant2<0, 1>(h0, s0_hi);
+  a_hi[1] = dequant2<0, 1>(h1, s1_hi);
+  a_hi[2] = dequant2<2, 3>(h0, s0_hi);
+  a_hi[3] = dequant2<2, 3>(h1, s1_hi);
+}
+
+// x's B fragments for one batch row: the 16 low-half inputs at shared
+// address `at` into xl, the matching high-half inputs (2 * slab bytes on)
+// into xh; zeros where `ok` is false (a lane past the row, a row past B).
+__device__ __forceinline__ void x_frags(uint32_t at, int slab, bool ok, uint32_t (&xl)[8],
+                                        uint32_t (&xh)[8]) {
+  uint4 v[4] = {};
+  if (ok) {
+    v[0] = lds128(at);
+    v[1] = lds128(at + 16);
+    v[2] = lds128(at + 2 * slab);
+    v[3] = lds128(at + 2 * slab + 16);
+  }
+  const uint32_t words[16] = {v[0].x, v[0].y, v[0].z, v[0].w, v[1].x, v[1].y, v[1].z, v[1].w,
+                              v[2].x, v[2].y, v[2].z, v[2].w, v[3].x, v[3].y, v[3].z, v[3].w};
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    xl[i] = words[i];
+    xh[i] = words[8 + i];
+  }
+}
+
+// y[B, O] f32 = x[B, 2*half] . W^T for one layer's q [O, half], scale [O, 2].
+// Grid: (blocks of warps / splits 16-row tiles, passes of NT * 8 batch rows).
+// Warp w takes tile w % tiles_per_block and every splits-th chunk from
+// w / tiles_per_block.  Shared memory holds the pass's x rows for one slab of
+// `slab` packed bytes: [lo inputs | hi inputs | 16 bytes of pad] per row.
+template <int NT>
+__global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT == 1 ? 1 : 2)
+    q4_stacked_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
+                          const float* __restrict__ scale, float* __restrict__ y, int B,
+                          int O, int half, int splits, int slab) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warps = blockDim.x >> 5;
+  const int tiles_per_block = warps / splits;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int tile = blockIdx.x * tiles_per_block + warp % tiles_per_block;
+  const int split = warp / tiles_per_block;
+  const int b0 = blockIdx.y * NT * 8;  // this pass's first batch row
+  const int nb = min(NT * 8, B - b0);
+  const int in_dim = 2 * half;
+  const int n_chunks = (half + kChunk - 1) / kChunk;
+  const int slab_chunks = slab / kChunk;
+  const int n_slabs = (n_chunks + slab_chunks - 1) / slab_chunks;
+  const int row_bytes = 4 * slab + 16;
+  const uint32_t x_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+
+  const int o_lo = tile * 16 + g, o_hi = o_lo + 8;
+  const bool tile_ok = tile * 16 < O;
+  const bool ok_lo = o_lo < O, ok_hi = o_hi < O;
+  const float s0_lo = ok_lo ? scale[2 * o_lo] : 0.f, s0_hi = ok_lo ? scale[2 * o_lo + 1] : 0.f;
+  const float s1_lo = ok_hi ? scale[2 * o_hi] : 0.f, s1_hi = ok_hi ? scale[2 * o_hi + 1] : 0.f;
+  const uint8_t* q_lo = q + static_cast<size_t>(ok_lo ? o_lo : 0) * half + 16 * t4;
+  const uint8_t* q_hi = q + static_cast<size_t>(ok_hi ? o_hi : 0) * half + 16 * t4;
+
+  // Chunk c's 16 bytes of rows g and g + 8 (zeros past the row or past O).
+  auto load_w = [&](int c, uint4& w0, uint4& w1) {
+    w0 = w1 = make_uint4(0u, 0u, 0u, 0u);
+    if (c < n_chunks && c * kChunk + 16 * t4 < half) {
+      if (ok_lo) w0 = ldg_stream(q_lo + c * kChunk);
+      if (ok_hi) w1 = ldg_stream(q_hi + c * kChunk);
+    }
+  };
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float acc_hi[4] = {0.f, 0.f, 0.f, 0.f};  // NT == 1: the high nibbles' products
+
+  int c = split;
+  uint4 cur0, cur1, nxt0, nxt1;
+  load_w(c, cur0, cur1);
+  load_w(c + splits, nxt0, nxt1);
+  for (int sl = 0; sl < n_slabs; ++sl) {
+    const int c_begin = sl * slab_chunks, c_end = min(n_chunks, c_begin + slab_chunks);
+    const int pieces = (min(half, c_end * kChunk) - c_begin * kChunk) / 8;  // of a half's row
+    if (sl > 0) __syncthreads();  // every warp is done with the last slab
+    for (int i = threadIdx.x; i < nb * 2 * pieces; i += blockDim.x) {
+      const int r = i / (2 * pieces), part = (i / pieces) & 1, p = i % pieces;
+      cp_async16(x_s + r * row_bytes + part * 2 * slab + p * 16,
+                 x + static_cast<size_t>(b0 + r) * in_dim + part * half + c_begin * kChunk +
+                     p * 8);
+    }
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+    __syncthreads();
+    if (!tile_ok) continue;
+    for (; c < c_end; c += splits) {
+      uint4 fut0, fut1;
+      load_w(c + 2 * splits, fut0, fut1);
+      // Shared address of this lane's 16 low-half inputs in batch row 0.
+      const uint32_t x_at = x_s + ((c - c_begin) * kChunk + 16 * t4) * 2;
+      const bool lane_ok = c * kChunk + 16 * t4 < half;
+      const uint32_t r0[4] = {cur0.x, cur0.y, cur0.z, cur0.w};
+      const uint32_t r1[4] = {cur1.x, cur1.y, cur1.z, cur1.w};
+      if constexpr (NT == 1) {
+        // One n-tile: x's fragments first, then word by word the dequant
+        // and its two products, low nibbles into acc, high into acc_hi, so
+        // that each product's latency hides under the next word's dequant.
+        uint32_t xl[8], xh[8];
+        x_frags(x_at + g * row_bytes, slab, lane_ok && g < nb, xl, xh);
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          uint32_t a_lo[4], a_hi[4];
+          dequant_word(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a_lo, a_hi);
+          mma_bf16(acc[0], a_lo, xl[2 * m], xl[2 * m + 1]);
+          mma_bf16(acc_hi, a_hi, xh[2 * m], xh[2 * m + 1]);
+        }
+      } else {
+        uint32_t a[8][4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          dequant_word(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a[m], a[m + 4]);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int r = nt * 8 + g;
+          uint32_t xl[8], xh[8];
+          x_frags(x_at + r * row_bytes, slab, lane_ok && r < nb, xl, xh);
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            mma_bf16(acc[nt], a[m], xl[2 * m], xl[2 * m + 1]);
+            mma_bf16(acc[nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
+          }
+        }
+      }
+      cur0 = nxt0;
+      cur1 = nxt1;
+      nxt0 = fut0;
+      nxt1 = fut1;
+    }
+  }
+
+  if constexpr (NT == 1) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][e] += acc_hi[e];
+  }
+  // The K splits' partial sums, added in warp order.
+  if (splits > 1) {
+    float* red = reinterpret_cast<float*>(smem);
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(threadIdx.x * NT + nt) * 4 + e] = acc[nt][e];
+    __syncthreads();
+    if (split != 0) return;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float sum = 0.f;
+        for (int sp = 0; sp < splits; ++sp)
+          sum += red[(((sp * tiles_per_block + warp) * 32 + lane) * NT + nt) * 4 + e];
+        acc[nt][e] = sum;
+      }
+  }
+  if (!tile_ok) return;
+  // acc[nt]: (row g, batch 2t / 2t+1) in 0 / 1, (row g + 8, ...) in 2 / 3.
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = nt * 8 + 2 * t4 + e;
+      if (r >= nb) continue;
+      float* yr = y + static_cast<size_t>(b0 + r) * O;
+      if (ok_lo) yr[o_lo] = acc[nt][e];
+      if (ok_hi) yr[o_hi] = acc[nt][2 + e];
+    }
+  }
+}
+
+int num_sms() {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (sms[dev] == 0) {
+    int n = 0;
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    sms[dev] = n > 0 ? n : 132;
+  }
+  return sms[dev];
+}
+
+template <int NT>
+int launch_stacked(const void* x, const void* q, const void* scale, void* y, int B, int O,
+                   int half, cudaStream_t stream) {
+  static bool sized[64] = {false};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64 || !sized[dev]) {
+    err = cudaFuncSetAttribute(q4_stacked_mma_kernel<NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kASmemMax);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= 0 && dev < 64) sized[dev] = true;
+  }
+  const int rows = std::min(B, NT * 8);
+  const int passes = (B + NT * 8 - 1) / (NT * 8);
+  const int half_chunks = (half + kChunk - 1) / kChunk * kChunk;
+  const int slab =
+      std::min(half_chunks, std::max(kChunk, kSlabBudget / (4 * rows) / kChunk * kChunk));
+  const int tiles = (O + 15) / 16;
+  const int sms = num_sms();
+  int warps = kAWarps, splits = 1;
+  if (NT == 1 && tiles >= kAWarps * sms) {
+    // A warp a tile, whole K, in blocks of 8 to kAMaxWarps warps: the size
+    // that puts the fewest tiles on the busiest SM (blocks go round the SMs
+    // in turn), and of equals the largest, which stages x the fewest times.
+    int best = 0;
+    for (int w = kAWarps; w <= kAMaxWarps; ++w) {
+      const int busiest = (((tiles + w - 1) / w + sms - 1) / sms) * w;
+      if (best == 0 || busiest <= best) best = busiest, warps = w;
+    }
+  } else {
+    // The fewest K splits that give every SM two blocks (at most 8: a warp each).
+    while (splits < kAWarps &&
+           (tiles + kAWarps / splits - 1) / (kAWarps / splits) * passes < 2 * sms)
+      splits *= 2;
+  }
+  const int tiles_per_block = warps / splits;
+  size_t smem = static_cast<size_t>(rows) * (4 * slab + 16);
+  if (splits > 1)
+    smem = std::max(smem, static_cast<size_t>(warps) * 32 * NT * 4 * sizeof(float));
+  const dim3 grid((tiles + tiles_per_block - 1) / tiles_per_block, passes);
+  q4_stacked_mma_kernel<NT><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
+      static_cast<const float*>(scale), static_cast<float*>(y), B, O, half, splits, slab);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // F, I and J take the probes' scale layout [2, O] (the s_lo row, then s_hi).
@@ -266,7 +595,12 @@ extern "C" int vt_q4_matmul(const void* x, const void* q, const void* scale,
 extern "C" int vt_q4_matmul_stacked(const void* x, const void* q,
                                     const void* scale, void* y, int B, int O,
                                     int half, void* stream) {
-  return launch(q4_matmul_stacked_kernel, x, q, scale, y, B, O, half, stream);
+  if (B < 1 || O < 1 || half < 16 || half % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 8) return launch_stacked<1>(x, q, scale, y, B, O, half, s);
+  if (B <= 16) return launch_stacked<2>(x, q, scale, y, B, O, half, s);
+  return launch_stacked<4>(x, q, scale, y, B, O, half, s);
 }
 
 // The folded arithmetic; scale is [2, O] f32 (the s_lo row, then the s_hi row).

@@ -79,10 +79,13 @@ def flash_attention(
             f"sq={sq}, skv={skv}"
         )
     scale = sm_scale if sm_scale is not None else d ** -0.5
+    if scale < 0:  # the kernel's running max is over raw scores: fold the sign into q
+        q, scale = -q, -scale
     if lengths is None:
         lengths = torch.full((b,), skv, dtype=torch.int32, device=q.device)
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()  # the kernel's 16-byte copies
+               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
     out = torch.empty_like(q)
     lib = _kernels.library()
     with torch.cuda.device(q.device):

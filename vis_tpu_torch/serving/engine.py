@@ -57,6 +57,7 @@ from vis_tpu_torch.ops.preprocess_device import (
     preprocess_image_device,
 )
 from vis_tpu_torch.models.llama.config import llama31_8b
+from vis_tpu_torch.models.loader import find_checkpoint
 from vis_tpu_torch.ops.quantized import QuantizedWeight, QuantizedWeight4
 
 logger = setup_logger(__name__, level="INFO", component="ENGINE")
@@ -861,11 +862,19 @@ def build_engine(role: str, model_name: str, device, seed: int = 0) -> Engine:
     """An engine for a role from the app config (weightless profiles only):
     the inspector and auditor are VLMs, every other role a text model, as
     in the JAX package.  Settings that would change the reference's numbers
-    and are not ported raise instead of being ignored."""
+    and are not ported raise instead of being ignored, and so does a
+    checkpoint under CHECKPOINT_DIR that the reference would serve."""
     if app_config.kv_quantization == "int8":
         raise NotImplementedError(
             "KV_QUANTIZATION=int8 is not ported: the port stores bf16 KV where "
             "the reference would store int8, so it refuses the setting"
+        )
+    ckpt_dir = find_checkpoint(model_name, app_config.get_checkpoint_dir())
+    if ckpt_dir is not None:
+        raise NotImplementedError(
+            f"{role}: {ckpt_dir} holds safetensors for {model_name}; the reference would "
+            "serve them, and checkpoint loading is not ported, so the port refuses to build "
+            "random weights in their place"
         )
     quant = app_config.quantization
     settings = ServingSettings.from_app_config()
