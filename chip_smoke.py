@@ -14,9 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    share of that bound and one PyTorch call for the same function where
    there is one (scaled_dot_product_attention for C, the int4 and int8
    weight-only matmuls for A, B and D).  A runs every projection of both
-   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3) and is
-   also timed against the loop it ran before moving to the tensor cores
-   (kernel B's, through q4_matmul).  A kernel's time is that of a run of
+   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3); B, the
+   int4 head, runs A's kernel on a one-layer weight, must equal A on it bit
+   for bit and give exactly 0 on zero-padded rows.  A kernel's time is that of a run of
    launches captured into a CUDA graph (``device_ms``), a plain version's
    that of a run of calls back to back (``stream_ms``);
 4. reference: the small Qwen2.5-VL profile and the small Llama text
@@ -265,9 +265,7 @@ def _kernel_a(gen, dev) -> dict:
     (max|err| <= 1e-3 * max|y|: only the order of the f32 sums differs).
     Timing walks the 28 layers so each launch reads its weight from device
     memory, as a decode window does.  Beside the kernel: its plain version,
-    its bound, torch._weight_int4pack_mm on the same weights, and the loop
-    A ran before it moved to the tensor cores, which kernel B still runs
-    (q4_row_rounded), launched through q4_matmul on the same layer views."""
+    its bound and torch._weight_int4pack_mm on the same weights."""
     import torch
 
     from vis_tpu_torch.ops import quantized as qz
@@ -295,7 +293,6 @@ def _kernel_a(gen, dev) -> dict:
                     worst = max(worst, err)
                 ms = device_ms(lambda i: qz.q4_matmul_stacked(
                     x, qz.QuantizedWeight4Pick(q, scale, i % LAYERS)), 56)
-                old = device_ms(lambda i: qz.q4_matmul(x, q[i % LAYERS], scale[i % LAYERS]), 56)
                 plain = stream_ms(lambda i: qz.q4_matmul_plain(
                     x, q[i % LAYERS], scale[i % LAYERS]), 28)
                 library = _library_int4(f"{model} {name} B={rows}", x, [
@@ -303,21 +300,22 @@ def _kernel_a(gen, dev) -> dict:
                     calls=56, tag="A")
                 weight = q[0].numel() + scale[0].numel() * 4
                 limit = bound(weight + rows * inn * 2 + rows * out * 4, 2 * rows * out * inn)
-                table[(model, name, rows)] = (ms, plain, limit, library, old)
+                table[(model, name, rows)] = (ms, plain, limit, library)
                 print(f"[A] {model} {name:8s} [{out}, {inn}] B={rows}: kernel {ms:.4f} ms "
                       f"({weight / (ms * 1e-3) / 1e9:.0f} GB/s of weight, {limit[0] / ms:.1%} of "
                       f"bound {limit[0]:.4f} ms ({limit[1]})), plain {plain:.4f} ms, library "
-                      f"{library:.4f} ms (kernel/library {ms / library:.2f}x), old loop "
-                      f"{old:.4f} ms (kernel/old {ms / old:.2f}x)")
+                      f"{library:.4f} ms (kernel/library {ms / library:.2f}x)")
             del w, q, scale
             torch.cuda.empty_cache()
-    ms, plain, limit, library, _ = table[("qwen", "gate_up", 8)]
+    ms, plain, limit, library = table[("qwen", "gate_up", 8)]
     return dict(err=worst, ms=ms, plain_ms=plain, bound=limit, library_ms=library, table=table)
 
 
 def _kernel_b(gen, dev) -> dict:
     """B: the int4 vocab head, B = 1, beside PyTorch's int4 matmul on the
-    same weights (``_library_int4``)."""
+    same weights (``_library_int4``).  Its last 64 rows are zeroed as a
+    padded vocab's are (q 0, scale 0) and must give exactly 0; B runs A's
+    kernel, so it must equal A on the head as a one-layer stack bit for bit."""
     import torch
 
     from vis_tpu_torch.ops import quantized as qz
@@ -325,15 +323,19 @@ def _kernel_b(gen, dev) -> dict:
 
     w = random_q4(gen, out=HEAD[0], inn=HEAD[1], device=dev)
     q, scale = w.q, w.scale
+    q[-64:], scale[-64:] = 0, 0.0
     x = torch.randn((1, HEAD[1]), generator=gen, device=dev).to(torch.bfloat16)
     got = qz.q4_matmul(x, q, scale)
     want = qz.q4_matmul_plain(x, q, scale)
+    as_a = qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q[None], scale[None], 0))
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     tol = 1e-3 * want.abs().max().item()
-    print(f"[B] head {list(HEAD)} B=1: max|err| {err:.3e} <= tol {tol:.3e}")
-    if not err <= tol:
-        raise AssertionError(f"kernel B: {err} > {tol}")
+    padded = got[:, -64:].abs().max().item()
+    print(f"[B] head {list(HEAD)} B=1: max|err| {err:.3e} <= tol {tol:.3e}; padded rows "
+          f"max|y| {padded} == 0; equal to A on a one-layer stack: {torch.equal(got, as_a)}")
+    if not (err <= tol and padded == 0.0 and torch.equal(got, as_a)):
+        raise AssertionError(f"kernel B: {err} > {tol}, padded rows {padded}, or not A's bits")
     ms = device_ms(lambda i: qz.q4_matmul(x, q, scale), 30)
     plain = stream_ms(lambda i: qz.q4_matmul_plain(x, q, scale), 10)
     gbps = (q.numel() + scale.numel() * 4) / (ms * 1e-3) / 1e9

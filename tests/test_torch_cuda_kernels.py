@@ -15,7 +15,8 @@ which the same kernel with gate and up swapped must exceed, and two runs
 must agree bit for bit (no atomics).  The int4 probe kernels: the folded
 pair (F, I, J) and signed int4 (K) differ from their plain versions only in
 the order of the f32 sums, max|err| <= 1e-4 * max|y|, and K with its
-nibble order flipped must miss that; the fused slab MLP (H) rounds act to
+nibble order flipped, or the folded pair with its s_lo and s_hi scale rows
+exchanged, must miss that; the folded pair gives the same bits twice; the fused slab MLP (H) rounds act to
 bf16 inside, so a flip of one act value in 32 is allowed, max|err| <=
 2^-12 * max_o sum_i |act_i w_oi| + 1e-4 * max|y|, which the same kernel
 with one slab's gate and up swapped must exceed, and two runs must agree
@@ -25,13 +26,15 @@ M, O and P have exact int32 sums and an epilogue of rounded (never fused)
 operations, so they equal their plain versions bit for bit, and O with its
 x halves swapped, or on P's reading of the bytes, must not.  The outputs of
 kernels A and B are pinned by SHA-256 digests of their bytes on seeded
-inputs, measured on an NVIDIA H100 80GB HBM3.  B's digest is the one it
-had before the folded kernels were added to its source.  A's digest was
-measured anew when A moved to the tensor cores: the mma.sync kernel sums
-each output in another order (sixteen-input tensor-core products, the K
-splits added in warp order), so its f32 bits differ from the one-warp-a-row
-loop's, within the same 1e-4 * max|y| of the plain version.  Every int4 case
-runs twice and must give the same bits.  Flash attention reads and writes
+inputs, measured on an NVIDIA H100 80GB HBM3.  Both were measured anew
+when they moved to the tensor cores (A first, then B onto A's kernel):
+the mma.sync kernel sums each output in another order than the
+one-warp-a-row loop did (sixteen-input tensor-core products, the K splits
+added in warp order), so its f32 bits differ from the loop's, within the
+same 1e-4 * max|y| of the plain version.  B is the launch A makes for a
+one-layer stack: every B case must equal A on the same weight bit for bit,
+and give exactly 0 on rows padded with zeros (q 0, scale 0) as a vocab head
+pads them.  Every int4 case runs twice and must give the same bits.  Flash attention reads and writes
 bf16 (unit-normal inputs) and rounds its probabilities before the P.V
 product; all query rows are compared, to max|err| <= 2e-2 and each output
 row to max|err| <= 2^-6 * max|ref| over that row, as chip_smoke.py holds it,
@@ -88,6 +91,7 @@ FOLD_CASES = {  # name: (rows, out, in, stacked layers or 0)
     "single-9x1000x256": (9, 1000, 256, 0),   # two batch passes
     "single-128x64x1024": (128, 64, 1024, 0),
     "stacked-3x520x768": (3, 520, 768, 3),
+    "single-1x37880x512": (1, 37880, 512, 0),  # past 2112 tiles, the last one ragged
 }
 I4_CASES = {  # name: (rows, out, in)
     "1x200x512": (1, 200, 512),
@@ -118,7 +122,7 @@ AB_CASES = {  # name: (rows, out, in, stacked layers or 0); B single, A stacked
     "A-8x4608x3584": (8, 4608, 3584, 2),
 }
 AB_BITS = {
-    "B-3x4096x3584": "1f67c89d4ac7547d19d8f6c1232de9d59dddbcced96d196bf9ad242cf6b7a2df",
+    "B-3x4096x3584": "68e0fdc1e8ffcda60adbc815f3cbcce847984cd54dabcd13f498ad64775232d3",
     "A-8x4608x3584": "60b4e63647270f65df0b89447fce1b07a262250a27deda9d1de09bb3f14f6e74",
 }
 FLASH_LENGTHS = {  # name: per-batch valid lengths (b=2) or None for all valid
@@ -160,6 +164,13 @@ def test_q4_kernel_matches_plain(card, name):
     assert repeatable == 1.0  # a second run gives the same bits
 
 
+@pytest.mark.parametrize("name", [n for n, case in Q4_CASES.items() if not case[3]])
+def test_b_is_a_on_a_one_layer_stack(card, name):
+    padded, equal_to_a = card[f"q4_b/{name}"].tolist()
+    assert padded == 0.0
+    assert equal_to_a == 1.0
+
+
 @pytest.mark.parametrize("name", list(Q8_CASES))
 def test_q8_kernel_matches_plain(card, name):
     err, scale, padded = card[f"q8/{name}"].tolist()
@@ -190,8 +201,10 @@ def test_flash_kernel_takes_a_negative_scale(card):
 
 @pytest.mark.parametrize("name", list(FOLD_CASES))
 def test_folded_kernel_matches_plain(card, name):
-    err, scale = card[f"fold/{name}"].tolist()
+    err, scale, repeatable, swapped = card[f"fold/{name}"].tolist()
     assert err <= 1e-4 * scale, (err, scale)
+    assert repeatable == 1.0
+    assert swapped > 1e-4 * scale, (swapped, scale)  # the lo and hi sums stay apart
 
 
 @pytest.mark.parametrize("name", list(I4_CASES))
@@ -242,12 +255,15 @@ def test_kernels_refuse_what_they_do_not_take(card):
 def test_each_case_counted_one_launch(card):
     assert card["launches"].tolist() == [
         2 * sum(1 for *_, layers in Q4_CASES.values() if not layers),  # checked, repeated
-        2 * sum(1 for *_, layers in Q4_CASES.values() if layers),
+        # Checked and repeated; each B case once more as a one-layer stack.
+        2 * sum(1 for *_, layers in Q4_CASES.values() if layers)
+        + sum(1 for *_, layers in Q4_CASES.values() if not layers),
         2 * len(FLASH_CASES) + 1,  # the checked run and the repeat; the negative scale
         len(Q8_CASES),
         3 * len(E_CASES),  # the checked run, the gate/up-swapped run, the repeat
-        sum(1 for *_, layers in FOLD_CASES.values() if not layers),
-        sum(1 for *_, layers in FOLD_CASES.values() if layers),
+        # The checked run, the repeat, the run with the scale rows swapped.
+        3 * sum(1 for *_, layers in FOLD_CASES.values() if not layers),
+        3 * sum(1 for *_, layers in FOLD_CASES.values() if layers),
         2 * len(I4_CASES),  # the checked run and the flipped-nibble run
         3 * len(H_CASES),   # the checked run, the swapped-slab run, the repeat
         len(L_CASES),

@@ -13,6 +13,12 @@ Tolerances:
   (``_i4_matmul_kernel``) compute the TPU body's arithmetic exactly, so
   they agree up to the order of the f32 sums: max|err| <= 1e-4 * max|y|.
   Padded head rows are exactly 0 on both sides.
+- The same three against the order in which the card's kernel sums the
+  folded function, written out in torch: the exact (n - 8) times bf16 x,
+  one f32 sum per nibble half, each scaled after it is complete.  The TPU
+  body sums x . n and subtracts 8 sum x instead; the two agree within
+  1e-4 * max|y| on the test's x and on the probes' constant x0 = 0.01,
+  where x . n and 8 sum x nearly cancel.
 - G (``probe_stacked_fused._q4_stacked_kernel``) and Q
   (``probe_scan_slice._q4_stacked_kernel``) run on the port's kernel A,
   which rounds each (n - 8) * s to bf16; they are held to the bound A
@@ -168,6 +174,14 @@ def sides(tmp_path_factory):
                 _dequant(inp["gu_q"][1], inp["gu_s"][1])).T).max()
             ref[f"Q/{rows}/bound"] = (np.abs(_bf16(a)) @ np.abs(
                 _dequant(inp["dn_q"][1], inp["dn_s"][1])).T).max()
+        # The probes' own first input, a constant 0.01 (tools/_probe's x0).
+        inp["x0"] = np.full((1, HIDDEN), 0.01, np.float32)
+        inp["a0"] = np.full((1, INTER), 0.01, np.float32)
+        x0, a0 = jnp.asarray(inp["x0"]), jnp.asarray(inp["a0"])
+        ref["F/x0"] = np.asarray(psf.q4_stacked(x0, gu_q, gu_s, 1, psf._q4_stacked_folded_kernel))
+        ref["J/x0"] = np.asarray(pu.q4_matmul_folded(a0, dn_q[0], dn_s[0]))
+        ref["I/x0"] = np.asarray(pu.q4_matmul_folded(
+            x0, jnp.asarray(inp["head_q"]), jnp.asarray(inp["head_s"])))
     port = run_port("probes", inp, tmp_path_factory.mktemp("torch_probes"))
     return inp, ref, port
 
@@ -178,6 +192,19 @@ def test_exact_arithmetic_matches_probe_kernel(sides, kernel, rows):
     _, ref, port = sides
     want = ref[f"{kernel}/{rows}"]
     err = np.abs(port[f"{kernel}/{rows}"] - want).max()
+    assert err <= 1e-4 * np.abs(want).max(), err
+
+
+@pytest.mark.parametrize("inputs", [str(rows) for rows in ROWS] + ["x0"])
+@pytest.mark.parametrize("kernel", ["F", "J", "I"])
+def test_centred_order_matches_probe_kernel(sides, kernel, inputs):
+    """The card kernel's order for the folded function (sums of x . (n - 8)
+    per nibble half, scales after the sums) against the TPU body's."""
+    _, ref, port = sides
+    want = ref[f"{kernel}/{inputs}"]
+    got = port[f"centred/{kernel}/{inputs}"]
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
     assert err <= 1e-4 * np.abs(want).max(), err
 
 

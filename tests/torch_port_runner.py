@@ -403,6 +403,19 @@ def _slab_bound(x, gq2, gs2, dq2, ds2, idx):
     return (act.abs() @ w.abs().T).max().item()
 
 
+def _centred_folded(x, q, scale2):
+    """The folded function in the order the card's kernel sums it: bf16 x
+    times the exact (n - 8), one f32 sum per nibble half, each sum scaled
+    after it is complete: (x_lo . (n_lo - 8)) s_lo + (x_hi . (n_hi - 8)) s_hi
+    for q [O, half] u8 and scale2 [2, O] -> [B, O] f32."""
+    half = q.shape[-1]
+    p = q.to(torch.int32)
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    lo = xf[:, :half] @ ((p & 15) - 8).to(torch.float32).T
+    hi = xf[:, half:] @ ((p >> 4) - 8).to(torch.float32).T
+    return lo * scale2[0] + hi * scale2[1]
+
+
 def case_probes(inp):
     """The int4 probe tools' counterparts on the CPU (plain versions): the
     folded pair (F, I, J), kernel A on the probes' layout (G, Q), signed
@@ -437,6 +450,14 @@ def case_probes(inp):
             out[f"trap/{label}/{rows}"] = np.array([
                 (fused - unfused).abs().max().item(), unfused.abs().max().item(),
                 _slab_bound(x, *qz.repack_slabs(gu_q, gu_s, dn_q, ds, bi), 1)])
+    head_q, head_s = _t(inp["head_q"]), _t(inp["head_s"])
+    inputs = {str(rows): (inp[f"x{rows}"], inp[f"a{rows}"]) for rows in inp["rows"].tolist()}
+    inputs["x0"] = (inp["x0"], inp["a0"])  # the probes' constant first input
+    for label, (x, a) in inputs.items():
+        x, a = _t(x), _t(a)
+        out[f"centred/F/{label}"] = _np(_centred_folded(x, gu_q[1], gu_s[1]))
+        out[f"centred/J/{label}"] = _np(_centred_folded(a, dn_q[0], dn_s[0]))
+        out[f"centred/I/{label}"] = _np(_centred_folded(x, head_q, head_s))
     for name, value in zip(("gq2", "gs2", "dq2", "ds2"), qz.repack_slabs(gu_q, gu_s, dn_q, dn_s, bi)):
         out[f"slab/{name}"] = _np(value)
     out["packed"] = qz.pack_int4_adjacent(inp["k_w"])
@@ -534,12 +555,19 @@ def case_cuda_kernels(inp):
                 return qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q, scale, layers - 1))
             want = qz.q4_matmul_plain(x, q[layers - 1], scale[layers - 1])
         else:
+            # A head's zero padding (q 0, scale 0) in the last 8 rows.
+            q[-8:], scale[-8:] = 0, 0.0
+
             def run():
                 return qz.q4_matmul(x, q, scale)
             want = qz.q4_matmul_plain(x, q, scale)
         got = run()
         out[f"q4/{name}"] = np.array([(got - want).abs().max().item(),
                                       want.abs().max().item(), float(torch.equal(got, run()))])
+        if not layers:  # B against A on the same weight as a one-layer stack
+            as_a = qz.q4_matmul_stacked(x, qz.QuantizedWeight4Pick(q[None], scale[None], 0))
+            out[f"q4_b/{name}"] = np.array([got[:, -8:].abs().max().item(),
+                                            float(torch.equal(got, as_a))])
     for name, (rows, out_dim, in_dim, padded) in json.loads(str(inp["q8_cases"])).items():
         q = torch.randint(-128, 128, (out_dim, in_dim), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -591,13 +619,18 @@ def case_cuda_kernels(inp):
                           device=dev, dtype=torch.uint8)
         scale = torch.rand((max(layers, 1), 2, out_dim), generator=gen, device=dev) * 0.01
         x = torch.randn((rows, in_dim), generator=gen, device=dev)
-        if layers:
-            got = qz.q4_matmul_stacked_folded(x, q, scale, layers - 1)
-        else:
-            got = qz.q4_matmul_folded(x, q[0], scale[0])
+
+        def run(scale):
+            if layers:
+                return qz.q4_matmul_stacked_folded(x, q, scale, layers - 1)
+            return qz.q4_matmul_folded(x, q[0], scale[0])
+        got = run(scale)
         want = qz.q4_matmul_folded_plain(x, q[max(layers, 1) - 1], scale[max(layers, 1) - 1])
+        swapped = run(scale.flip(1).contiguous())  # the s_lo and s_hi rows exchanged
         out[f"fold/{name}"] = np.array([(got - want).abs().max().item(),
-                                        want.abs().max().item()])
+                                        want.abs().max().item(),
+                                        float(torch.equal(got, run(scale))),
+                                        (swapped - want).abs().max().item()])
     for name, (rows, out_dim, in_dim) in json.loads(str(inp["i4_cases"])).items():
         w = torch.randint(-8, 8, (out_dim, in_dim), generator=gen, device=dev, dtype=torch.int8)
         q = qz.pack_int4_adjacent(w)

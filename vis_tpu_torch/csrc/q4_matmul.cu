@@ -1,75 +1,73 @@
 // Int4 weight-only matmul for Hopper (sm_90a): y[B, O] f32 = x[B, I] . W[O, I]^T
 //
-// Replaces two Pallas TPU kernels of the JAX package:
-//   B: vis_tpu/ops/quantized.py:_q4_matmul_kernel  (one [O, I/2] weight; the
-//      int4 vocab head)                          -> entry vt_q4_matmul
+// One kernel on the tensor cores (q4_stacked_mma_kernel, below) in two
+// arithmetics, behind four entries.  It replaces two Pallas TPU kernels of
+// the JAX package, in its rounded form:
 //   A: vis_tpu/ops/quantized.py:_q4_stacked_kernel (layer `idx` of a stacked
 //      [L, O, I/2] weight; every decoder projection of a lookahead window)
-//                                                 -> entry vt_q4_matmul_stacked
-// and, through a second row function (q4_row_folded), three kernels of the
-// int4 probe tools, which compute the TPU kernels' own folded arithmetic:
+//   B: vis_tpu/ops/quantized.py:_q4_matmul_kernel  (one [O, I/2] weight; the
+//      int4 vocab head)                                 -> entry vt_q4_matmul
+// and, in its folded form, three kernels of the int4 probe tools:
+//   F: tools/probe_stacked_fused.py:_q4_stacked_folded_kernel (layer `idx`)
 //   J: tools/probe_unpack.py:_q4_matmul_kernel_folded (one weight), and
 //   I: tools/probe_stacked_fused.py:flat_folded (the padded vocab head sweep)
-//                                                 -> entry vt_q4_matmul_folded
-//   F: tools/probe_stacked_fused.py:_q4_stacked_folded_kernel (layer `idx`)
-//                                                 -> entry vt_q4_matmul_stacked_folded
-// B runs q4_row_rounded(), F, I and J q4_row_folded(); A has a kernel of
-// its own on the tensor cores (q4_stacked_mma_kernel, below).  The stacked
-// entries are handed the picked layer's pointer: in torch `stack.q[idx]` is
-// a view.
+//                                                       -> entry vt_q4_matmul_folded
+// An entry takes one layer's pointers: in torch `stack.q[idx]` is a view, so
+// A and B, and F, J and I, are the same launch.
 //
 // Weight layout (same bytes as the JAX package): q[o, j] packs input j in the
 // low nibble and input j + I/2 in the high nibble, both stored as value + 8.
-// A and B take scale [O, 2] = {s_lo, s_hi} per row, and the weight a
-// product sees is
-//     w = bf16((nibble - 8) * s)
-// i.e. the JAX package's dequantized bf16 weight (unpack_int4), so this kernel
-// and its plain PyTorch version agree up to the order of f32 accumulation.
-// (The TPU kernel folded the -8 into a -8*sum(x) correction, a lane-op trick
-// for the TPU's vector unit; a per-nibble subtract is cheap here.)
-// F, I and J take the probes' kernel layout [2, O] (row 0 s_lo, row 1
-// s_hi), and the arithmetic is the TPU kernels' exactly: the
-// unsigned nibble n in [0, 15] times bf16 x, summed in f32, the -8 bias
-// folded into a sum of x, and the scale applied once after the sum,
-//     y = (sum x_lo n_lo - 8 sum x_lo) s_lo + (sum x_hi n_hi - 8 sum x_hi) s_hi.
-// Each lane keeps four partial sums per batch row for it.  B's loop is the
-// one it had before the folded kernels were added (same output bits).
+//   - Rounded (A, B): scale [O, 2] = {s_lo, s_hi} per row, and the weight a
+//     product sees is w = bf16((nibble - 8) * s), the JAX package's
+//     dequantized bf16 weight (unpack_int4), so the kernel and its plain
+//     PyTorch version agree up to the order of the f32 sums.
+//   - Folded (F, I, J): the probes' scale layout [2, O] (row 0 s_lo, row 1
+//     s_hi) and the TPU kernels' function, the scale applied once after an
+//     f32 sum of bf16 x times the nibble,
+//         y = (sum x_lo n_lo - 8 sum x_lo) s_lo + (sum x_hi n_hi - 8 sum x_hi) s_hi.
+//     The kernel sums the same products centred, sum x_lo (n_lo - 8), which
+//     is that value with the sums taken in another order: (n - 8) is exact
+//     in bf16, the low and high nibbles' sums stay apart to the end, and the
+//     epilogue is acc_lo * s_lo + acc_hi * s_hi, each step rounded (no FMA),
+//     as the plain version's last step.  (The TPU folded the -8 into a
+//     -8 * sum(x) correction, a lane-op trick for its vector unit; the
+//     centred sum needs no sum of x and does not cancel, as sum x n - 8 sum x
+//     does when x is near constant.)
 //
-// What bounds them: at the decode shapes (B = 1 to 8 rows) a kernel streams
+// What bounds it: at the decode shapes (B = 1 to 8 rows) a launch streams
 // O * I/2 bytes of packed weight plus 8 bytes of scale per row and does
 // 2 * B * O * I flops, far below the ~295 flop/byte where an H100 turns
-// compute-bound, so it is bound by weight bytes.  The row functions read
-// each weight byte exactly once, 16 bytes per lane and 512 contiguous bytes
-// per warp, keep all B rows' partial sums in registers, and read x through
-// L1/L2.  One warp owns one output row; a block holds 8 warps.  Their cost
-// grows with B, not with the weight: each lane dequantizes 32 values per 16
-// bytes, then re-reads 64 bytes of x and does 32 FFMAs for every batch row.
+// compute-bound, so it is bound by weight bytes.  The dequant is not what
+// holds it at about half of HBM's rate: on an H100 the folded form, a third
+// of the rounded form's instructions a value, runs only ~5% faster.
 //
-// Kernel A (q4_stacked_mma_kernel) removes that growth.  It computes
-// y^T = W . x^T with mma.sync.m16n8k16 (bf16 -> f32): a warp's 16 output
-// rows are the M operand and 8 batch rows of x the N operand, so B <= 8 fills
-// one n-tile, and each weight value is dequantized once, into the A
-// fragment, whatever B is.  A dot product does not care about the order of
-// k, so the fragment's k positions are permuted to the bytes a lane already
-// holds: lane (g, t) loads 16 contiguous bytes of rows g and g + 8 at byte
-// offset 16t of the warp's 64-byte chunk (a quad reads 64 contiguous bytes
-// of a row), and word m of them feeds two products, the low nibbles
-// (inputs j..j+3, j = chunk + 16t + 4m) and the high nibbles (inputs
-// half + j..).  x's B fragment is read from shared memory with the same
-// permutation: 8 contiguous bytes of batch row g.  The weight layout
+// The matvec computes y^T = W . x^T with mma.sync.m16n8k16 (bf16 -> f32): a
+// warp's 16 output rows are the M operand and 8 batch rows of x the N
+// operand, so B <= 8 fills one n-tile, and each weight value is dequantized
+// once, into the A fragment, whatever B is.  A dot product does not care
+// about the order of k, so the fragment's k positions are permuted to the
+// bytes a lane already holds: lane (g, t) loads 16 contiguous bytes of rows
+// g and g + 8 at byte offset 16t of the warp's 64-byte chunk (a quad reads
+// 64 contiguous bytes of a row), and word m of them feeds two products, the
+// low nibbles (inputs j..j+3, j = chunk + 16t + 4m) and the high nibbles
+// (inputs half + j..).  x's B fragment is read from shared memory with the
+// same permutation: 8 contiguous bytes of batch row g.  The weight layout
 // [L, O, I/2] is the one the model stores; nothing is repacked.
-//   - Dequantization gives the bits of dequant() below: (n - 8) exactly by
-//     the 0x4B000000 magic (one PRMT, one FADD), one FMUL by s, and
-//     cvt.rn.bf16x2.f32 for two values.
+//   - Rounded dequant: (n - 8) exactly by the 0x4B000000 magic (one PRMT,
+//     one FADD), one FMUL by s, and cvt.rn.bf16x2.f32 for two values: the
+//     bits unpack_int4 gives each value, ~3.5 instructions a value.
+//   - Folded dequant: one PRMT puts two nibbles under a 0x43 high byte, the
+//     bf16 pair {128 + n0, 128 + n1} exactly, and one bf16x2 subtract of 136
+//     gives {n0 - 8, n1 - 8}, exact: one instruction a value.
 //   - x is staged once per block in shared memory, in K-slabs of at most
 //     kSlabBudget bytes (down's x at B = 8 is 303 KB), rows padded by 16
 //     bytes so that a quarter-warp's 16-byte reads hit 8 distinct bank groups.
 //     (Double-buffering the slabs in two halves of that budget, or staging a
 //     slab in groups that the warps wait for in turn, ran slower on the H100.)
-//   - With enough 16-row tiles (at least 8 a SM: gate_up 2368 and 1792)
-//     each warp takes a tile and its whole K, in blocks of 8 to 20 warps
-//     sized so that the busiest SM gets the fewest tiles: one block of 18
-//     warps a SM at Qwen's gate_up, where 8-warp blocks, two a SM, would
+//   - With enough 16-row tiles (at least 8 a SM: gate_up 2368, the heads
+//     9504) each warp takes a tile and its whole K, in blocks of 8 to 20
+//     warps sized so that the busiest SM gets the fewest tiles: one block of
+//     18 warps a SM at Qwen's gate_up, where 8-warp blocks, two a SM, would
 //     leave a second wave of 32 blocks on 32 SMs.  With fewer tiles (o, down
 //     and qkv: 224-384) 8-warp blocks, two a SM, split K between their warps
 //     (2, 4 or 8 ways), and the partial sums are added in shared memory in
@@ -86,167 +84,6 @@
 #include <algorithm>
 
 namespace {
-
-constexpr int kWarpsPerBlock = 8;
-constexpr int kRowsPerPass = 8;  // batch rows whose sums live in registers
-
-__device__ __forceinline__ float dequant(uint32_t nibble, float s) {
-  return __bfloat162float(
-      __float2bfloat16_rn(static_cast<float>(static_cast<int>(nibble) - 8) * s));
-}
-
-// 8 bf16 values (16 bytes) -> 8 floats.
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* out) {
-  uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    float2 f = __bfloat1622float2(pairs[k]);
-    out[2 * k] = f.x;
-    out[2 * k + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// The warp's output row, or -1 past the last one.
-__device__ __forceinline__ int warp_row(int O) {
-  const int o = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  return o < O ? o : -1;
-}
-
-// B: each weight rounded to bf16 before the product (the JAX package's
-// dequantized weight), one f32 sum per batch row.
-__device__ __forceinline__ void q4_row_rounded(const __nv_bfloat16* __restrict__ x,
-                                               const uint8_t* __restrict__ qrow,
-                                               float s_lo, float s_hi,
-                                               float* __restrict__ y, int B, int O,
-                                               int o, int half) {
-  const int lane = threadIdx.x & 31;
-  const int in_dim = 2 * half;
-  const int chunks = half / 16;
-  for (int b0 = 0; b0 < B; b0 += kRowsPerPass) {
-    const int nb = min(kRowsPerPass, B - b0);
-    float acc[kRowsPerPass];
-#pragma unroll
-    for (int r = 0; r < kRowsPerPass; ++r) acc[r] = 0.f;
-
-    for (int c = lane; c < chunks; c += 32) {
-      const uint4 packed = *reinterpret_cast<const uint4*>(qrow + 16 * c);
-      const uint32_t words[4] = {packed.x, packed.y, packed.z, packed.w};
-      float w_lo[16], w_hi[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const uint32_t byte = (words[k >> 2] >> (8 * (k & 3))) & 0xffu;
-        w_lo[k] = dequant(byte & 15u, s_lo);
-        w_hi[k] = dequant(byte >> 4, s_hi);
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerPass; ++r) {
-        if (r < nb) {
-          const __nv_bfloat16* xr = x + static_cast<size_t>(b0 + r) * in_dim + 16 * c;
-          float xv[16];
-          float sum = 0.f;
-          load8(xr, xv);
-          load8(xr + 8, xv + 8);
-#pragma unroll
-          for (int k = 0; k < 16; ++k) sum = fmaf(xv[k], w_lo[k], sum);
-          load8(xr + half, xv);
-          load8(xr + half + 8, xv + 8);
-#pragma unroll
-          for (int k = 0; k < 16; ++k) sum = fmaf(xv[k], w_hi[k], sum);
-          acc[r] += sum;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerPass; ++r) {
-      const float v = warp_sum(acc[r]);
-      if (lane == 0 && r < nb) y[static_cast<size_t>(b0 + r) * O + o] = v;
-    }
-  }
-}
-
-// F, I, J: the TPU kernels' folded arithmetic, four f32 sums per batch row
-// (dot_lo, dot_hi, sum x_lo, sum x_hi) and the scales after the sum.
-__device__ __forceinline__ void q4_row_folded(const __nv_bfloat16* __restrict__ x,
-                                              const uint8_t* __restrict__ qrow,
-                                              float s_lo, float s_hi,
-                                              float* __restrict__ y, int B, int O,
-                                              int o, int half) {
-  const int lane = threadIdx.x & 31;
-  const int in_dim = 2 * half;
-  const int chunks = half / 16;
-  for (int b0 = 0; b0 < B; b0 += kRowsPerPass) {
-    const int nb = min(kRowsPerPass, B - b0);
-    float acc[kRowsPerPass][4];
-#pragma unroll
-    for (int r = 0; r < kRowsPerPass; ++r)
-#pragma unroll
-      for (int t = 0; t < 4; ++t) acc[r][t] = 0.f;
-
-    for (int c = lane; c < chunks; c += 32) {
-      const uint4 packed = *reinterpret_cast<const uint4*>(qrow + 16 * c);
-      const uint32_t words[4] = {packed.x, packed.y, packed.z, packed.w};
-      float n_lo[16], n_hi[16];
-#pragma unroll
-      for (int k = 0; k < 16; ++k) {
-        const uint32_t byte = (words[k >> 2] >> (8 * (k & 3))) & 0xffu;
-        n_lo[k] = static_cast<float>(byte & 15u);
-        n_hi[k] = static_cast<float>(byte >> 4);
-      }
-#pragma unroll
-      for (int r = 0; r < kRowsPerPass; ++r) {
-        if (r < nb) {
-          const __nv_bfloat16* xr = x + static_cast<size_t>(b0 + r) * in_dim + 16 * c;
-          float xv[16];
-          load8(xr, xv);
-          load8(xr + 8, xv + 8);
-#pragma unroll
-          for (int k = 0; k < 16; ++k) {
-            acc[r][0] = fmaf(xv[k], n_lo[k], acc[r][0]);
-            acc[r][2] += xv[k];
-          }
-          load8(xr + half, xv);
-          load8(xr + half + 8, xv + 8);
-#pragma unroll
-          for (int k = 0; k < 16; ++k) {
-            acc[r][1] = fmaf(xv[k], n_hi[k], acc[r][1]);
-            acc[r][3] += xv[k];
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerPass; ++r) {
-      const float dot_lo = warp_sum(acc[r][0]);
-      const float dot_hi = warp_sum(acc[r][1]);
-      const float sum_lo = warp_sum(acc[r][2]);
-      const float sum_hi = warp_sum(acc[r][3]);
-      if (lane == 0 && r < nb)
-        y[static_cast<size_t>(b0 + r) * O + o] =
-            (dot_lo - 8.f * sum_lo) * s_lo + (dot_hi - 8.f * sum_hi) * s_hi;
-    }
-  }
-}
-
-// B takes scale [O, 2] = {s_lo, s_hi} per row.
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    q4_matmul_kernel(const __nv_bfloat16* x, const uint8_t* q,
-                     const float* scale, float* y, int B, int O, int half) {
-  const int o = warp_row(O);
-  if (o < 0) return;
-  q4_row_rounded(x, q + static_cast<size_t>(o) * half, scale[2 * o], scale[2 * o + 1],
-                 y, B, O, o, half);
-}
-
-// ---------------------------------------------------------------------------
-// A: the stacked int4 matvec on the tensor cores (see the file's head).
-// ---------------------------------------------------------------------------
 
 constexpr int kAWarps = 8;                // warps a block when K is split or B > 8
 constexpr int kAMaxWarps = 20;            // a block's warps at most (one a tile, B <= 8)
@@ -292,31 +129,57 @@ __device__ __forceinline__ float centred(uint32_t nibbles) {
   return __int_as_float(__byte_perm(nibbles, 0x4B000000u, 0x7650 | Byte)) - 8388616.0f;
 }
 
-// bf16x2 {bf16((n0 - 8) * s), bf16((n1 - 8) * s)} for bytes B0, B1: the bits
-// dequant() gives each value.
+// Rounded: bf16x2 {bf16((n0 - 8) * s), bf16((n1 - 8) * s)} for bytes B0, B1,
+// the bits unpack_int4 gives each value.
 template <int B0, int B1>
 __device__ __forceinline__ uint32_t dequant2(uint32_t nibbles, float s) {
   __nv_bfloat162 v = __floats2bfloat162_rn(centred<B0>(nibbles) * s, centred<B1>(nibbles) * s);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// Folded: bf16x2 {n0 - 8, n1 - 8} for bytes B0, B1, exact.  The byte perm
+// makes bf16 0x43nn = 128 + n (n < 16 fits the 7-bit mantissa); subtracting
+// bf16 136 (0x4308) from both halves leaves n - 8.
+template <int B0, int B1>
+__device__ __forceinline__ uint32_t centred2(uint32_t nibbles) {
+  const uint32_t biased = __byte_perm(nibbles, 0x43434343u, 0x4040 | (B1 << 8) | B0);
+  const __nv_bfloat162 v = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
+                                   __halves2bfloat162(__ushort_as_bfloat16(0x4308),
+                                                      __ushort_as_bfloat16(0x4308)));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 // The A fragments of word m of a lane's 16 bytes of rows g (w0) and g + 8
 // (w1): a_lo holds the low-nibble values, a_hi the high-nibble ones.
 // Fragment registers 0 / 2 are row g at k-slots (2t, 2t+1) / (2t+8, 2t+9),
 // i.e. bytes (4m, 4m+1) / (4m+2, 4m+3); registers 1 / 3 the same for row g + 8.
+// Rounded, each value is scaled by its row's and half's scale; folded, it
+// is n - 8 and the scales wait for the epilogue.
+template <bool Folded>
 __device__ __forceinline__ void dequant_word(uint32_t w0, uint32_t w1, float s0_lo, float s0_hi,
                                              float s1_lo, float s1_hi, uint32_t (&a_lo)[4],
                                              uint32_t (&a_hi)[4]) {
   const uint32_t n0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
   const uint32_t n1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
-  a_lo[0] = dequant2<0, 1>(n0, s0_lo);
-  a_lo[1] = dequant2<0, 1>(n1, s1_lo);
-  a_lo[2] = dequant2<2, 3>(n0, s0_lo);
-  a_lo[3] = dequant2<2, 3>(n1, s1_lo);
-  a_hi[0] = dequant2<0, 1>(h0, s0_hi);
-  a_hi[1] = dequant2<0, 1>(h1, s1_hi);
-  a_hi[2] = dequant2<2, 3>(h0, s0_hi);
-  a_hi[3] = dequant2<2, 3>(h1, s1_hi);
+  if constexpr (Folded) {
+    a_lo[0] = centred2<0, 1>(n0);
+    a_lo[1] = centred2<0, 1>(n1);
+    a_lo[2] = centred2<2, 3>(n0);
+    a_lo[3] = centred2<2, 3>(n1);
+    a_hi[0] = centred2<0, 1>(h0);
+    a_hi[1] = centred2<0, 1>(h1);
+    a_hi[2] = centred2<2, 3>(h0);
+    a_hi[3] = centred2<2, 3>(h1);
+  } else {
+    a_lo[0] = dequant2<0, 1>(n0, s0_lo);
+    a_lo[1] = dequant2<0, 1>(n1, s1_lo);
+    a_lo[2] = dequant2<2, 3>(n0, s0_lo);
+    a_lo[3] = dequant2<2, 3>(n1, s1_lo);
+    a_hi[0] = dequant2<0, 1>(h0, s0_hi);
+    a_hi[1] = dequant2<0, 1>(h1, s1_hi);
+    a_hi[2] = dequant2<2, 3>(h0, s0_hi);
+    a_hi[3] = dequant2<2, 3>(h1, s1_hi);
+  }
 }
 
 // x's B fragments for one batch row: the 16 low-half inputs at shared
@@ -340,12 +203,13 @@ __device__ __forceinline__ void x_frags(uint32_t at, int slab, bool ok, uint32_t
   }
 }
 
-// y[B, O] f32 = x[B, 2*half] . W^T for one layer's q [O, half], scale [O, 2].
+// y[B, O] f32 = x[B, 2*half] . W^T for one layer's q [O, half]; scale is
+// [O, 2] rounded, [2, O] folded.
 // Grid: (blocks of warps / splits 16-row tiles, passes of NT * 8 batch rows).
 // Warp w takes tile w % tiles_per_block and every splits-th chunk from
 // w / tiles_per_block.  Shared memory holds the pass's x rows for one slab of
 // `slab` packed bytes: [lo inputs | hi inputs | 16 bytes of pad] per row.
-template <int NT>
+template <int NT, bool Folded>
 __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT == 1 ? 1 : 2)
     q4_stacked_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
                           const float* __restrict__ scale, float* __restrict__ y, int B,
@@ -369,8 +233,12 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
   const int o_lo = tile * 16 + g, o_hi = o_lo + 8;
   const bool tile_ok = tile * 16 < O;
   const bool ok_lo = o_lo < O, ok_hi = o_hi < O;
-  const float s0_lo = ok_lo ? scale[2 * o_lo] : 0.f, s0_hi = ok_lo ? scale[2 * o_lo + 1] : 0.f;
-  const float s1_lo = ok_hi ? scale[2 * o_hi] : 0.f, s1_hi = ok_hi ? scale[2 * o_hi + 1] : 0.f;
+  // Scale of (row, nibble half): [O, 2] rounded, [2, O] folded.
+  auto scale_of = [&](int o, int part) {
+    return Folded ? scale[part * O + o] : scale[2 * o + part];
+  };
+  const float s0_lo = ok_lo ? scale_of(o_lo, 0) : 0.f, s0_hi = ok_lo ? scale_of(o_lo, 1) : 0.f;
+  const float s1_lo = ok_hi ? scale_of(o_hi, 0) : 0.f, s1_hi = ok_hi ? scale_of(o_hi, 1) : 0.f;
   const uint8_t* q_lo = q + static_cast<size_t>(ok_lo ? o_lo : 0) * half + 16 * t4;
   const uint8_t* q_hi = q + static_cast<size_t>(ok_hi ? o_hi : 0) * half + 16 * t4;
 
@@ -383,10 +251,16 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
     }
   };
 
-  float acc[NT][4];
+  // acc: every product (rounded, NT > 1) or the low nibbles' (otherwise);
+  // acc_hi: the high nibbles' (rounded NT == 1, which adds it to acc at the
+  // end, and folded, which keeps the two sums apart until the epilogue).
+  constexpr int kHiTiles = Folded ? NT : 1;
+  float acc[NT][4], acc_hi[kHiTiles][4];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  float acc_hi[4] = {0.f, 0.f, 0.f, 0.f};  // NT == 1: the high nibbles' products
+#pragma unroll
+  for (int nt = 0; nt < kHiTiles; ++nt)
+    acc_hi[nt][0] = acc_hi[nt][1] = acc_hi[nt][2] = acc_hi[nt][3] = 0.f;
 
   int c = split;
   uint4 cur0, cur1, nxt0, nxt1;
@@ -422,15 +296,15 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           uint32_t a_lo[4], a_hi[4];
-          dequant_word(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a_lo, a_hi);
+          dequant_word<Folded>(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a_lo, a_hi);
           mma_bf16(acc[0], a_lo, xl[2 * m], xl[2 * m + 1]);
-          mma_bf16(acc_hi, a_hi, xh[2 * m], xh[2 * m + 1]);
+          mma_bf16(acc_hi[0], a_hi, xh[2 * m], xh[2 * m + 1]);
         }
       } else {
         uint32_t a[8][4];
 #pragma unroll
         for (int m = 0; m < 4; ++m)
-          dequant_word(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a[m], a[m + 4]);
+          dequant_word<Folded>(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a[m], a[m + 4]);
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int r = nt * 8 + g;
@@ -439,7 +313,10 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
 #pragma unroll
           for (int m = 0; m < 4; ++m) {
             mma_bf16(acc[nt], a[m], xl[2 * m], xl[2 * m + 1]);
-            mma_bf16(acc[nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
+            if constexpr (Folded)
+              mma_bf16(acc_hi[nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
+            else
+              mma_bf16(acc[nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
           }
         }
       }
@@ -450,28 +327,37 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
     }
   }
 
-  if constexpr (NT == 1) {
+  if constexpr (NT == 1 && !Folded) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[0][e] += acc_hi[e];
+    for (int e = 0; e < 4; ++e) acc[0][e] += acc_hi[0][e];
   }
-  // The K splits' partial sums, added in warp order.
+  // The K splits' partial sums, added in warp order (folded: each of the
+  // two sums on its own).
+  constexpr int kSums = Folded ? 2 : 1;
   if (splits > 1) {
     float* red = reinterpret_cast<float*>(smem);
     __syncthreads();
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) red[(threadIdx.x * NT + nt) * 4 + e] = acc[nt][e];
+      for (int e = 0; e < 4; ++e) {
+        red[((threadIdx.x * NT + nt) * kSums) * 4 + e] = acc[nt][e];
+        if constexpr (Folded) red[((threadIdx.x * NT + nt) * kSums + 1) * 4 + e] = acc_hi[nt][e];
+      }
     __syncthreads();
     if (split != 0) return;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float sum = 0.f;
-        for (int sp = 0; sp < splits; ++sp)
-          sum += red[(((sp * tiles_per_block + warp) * 32 + lane) * NT + nt) * 4 + e];
+        float sum = 0.f, sum_hi = 0.f;
+        for (int sp = 0; sp < splits; ++sp) {
+          const int at = (((sp * tiles_per_block + warp) * 32 + lane) * NT + nt) * kSums;
+          sum += red[at * 4 + e];
+          if constexpr (Folded) sum_hi += red[(at + 1) * 4 + e];
+        }
         acc[nt][e] = sum;
+        if constexpr (Folded) acc_hi[nt][e] = sum_hi;
       }
   }
   if (!tile_ok) return;
@@ -483,8 +369,16 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
       const int r = nt * 8 + 2 * t4 + e;
       if (r >= nb) continue;
       float* yr = y + static_cast<size_t>(b0 + r) * O;
-      if (ok_lo) yr[o_lo] = acc[nt][e];
-      if (ok_hi) yr[o_hi] = acc[nt][2 + e];
+      if constexpr (Folded) {
+        if (ok_lo)
+          yr[o_lo] = __fadd_rn(__fmul_rn(acc[nt][e], s0_lo), __fmul_rn(acc_hi[nt][e], s0_hi));
+        if (ok_hi)
+          yr[o_hi] =
+              __fadd_rn(__fmul_rn(acc[nt][2 + e], s1_lo), __fmul_rn(acc_hi[nt][2 + e], s1_hi));
+      } else {
+        if (ok_lo) yr[o_lo] = acc[nt][e];
+        if (ok_hi) yr[o_hi] = acc[nt][2 + e];
+      }
     }
   }
 }
@@ -501,15 +395,15 @@ int num_sms() {
   return sms[dev];
 }
 
-template <int NT>
-int launch_stacked(const void* x, const void* q, const void* scale, void* y, int B, int O,
-                   int half, cudaStream_t stream) {
+template <int NT, bool Folded>
+int launch_pass(const void* x, const void* q, const void* scale, void* y, int B, int O,
+                int half, cudaStream_t stream) {
   static bool sized[64] = {false};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev < 0 || dev >= 64 || !sized[dev]) {
-    err = cudaFuncSetAttribute(q4_stacked_mma_kernel<NT>,
+    err = cudaFuncSetAttribute(q4_stacked_mma_kernel<NT, Folded>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, kASmemMax);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (dev >= 0 && dev < 64) sized[dev] = true;
@@ -540,79 +434,40 @@ int launch_stacked(const void* x, const void* q, const void* scale, void* y, int
   const int tiles_per_block = warps / splits;
   size_t smem = static_cast<size_t>(rows) * (4 * slab + 16);
   if (splits > 1)
-    smem = std::max(smem, static_cast<size_t>(warps) * 32 * NT * 4 * sizeof(float));
+    smem = std::max(smem, static_cast<size_t>(warps) * 32 * NT * 4 * sizeof(float) *
+                              (Folded ? 2 : 1));
   const dim3 grid((tiles + tiles_per_block - 1) / tiles_per_block, passes);
-  q4_stacked_mma_kernel<NT><<<grid, warps * 32, smem, stream>>>(
+  q4_stacked_mma_kernel<NT, Folded><<<grid, warps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(scale), static_cast<float*>(y), B, O, half, splits, slab);
   return static_cast<int>(cudaGetLastError());
 }
 
-// F, I and J take the probes' scale layout [2, O] (the s_lo row, then s_hi).
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    q4_matmul_folded_kernel(const __nv_bfloat16* x, const uint8_t* q,
-                            const float* scale, float* y, int B, int O, int half) {
-  const int o = warp_row(O);
-  if (o < 0) return;
-  q4_row_folded(x, q + static_cast<size_t>(o) * half, scale[o], scale[O + o],
-                y, B, O, o, half);
-}
-
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-    q4_matmul_stacked_folded_kernel(const __nv_bfloat16* x, const uint8_t* q,
-                                    const float* scale, float* y, int B, int O,
-                                    int half) {
-  const int o = warp_row(O);
-  if (o < 0) return;
-  q4_row_folded(x, q + static_cast<size_t>(o) * half, scale[o], scale[O + o],
-                y, B, O, o, half);
-}
-
-using Kernel = void (*)(const __nv_bfloat16*, const uint8_t*, const float*, float*,
-                        int, int, int);
-
-int launch(Kernel kernel, const void* x, const void* q, const void* scale, void* y,
-           int B, int O, int half, void* stream) {
+// Every entry: one, two or four n-tiles a block by B.
+template <bool Folded>
+int launch(const void* x, const void* q, const void* scale, void* y, int B, int O, int half,
+           void* stream) {
   if (B < 1 || O < 1 || half < 16 || half % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((O + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  kernel<<<grid, kWarpsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const float*>(scale), static_cast<float*>(y), B, O, half);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 8) return launch_pass<1, Folded>(x, q, scale, y, B, O, half, s);
+  if (B <= 16) return launch_pass<2, Folded>(x, q, scale, y, B, O, half, s);
+  return launch_pass<4, Folded>(x, q, scale, y, B, O, half, s);
 }
 
 }  // namespace
 
-// x: [B, 2*half] bf16, q: [O, half] u8, scale: [O, 2] f32, y: [B, O] f32.
-// Every pointer 16-byte aligned, every array contiguous (the wrapper checks).
+// x: [B, 2*half] bf16, q: [O, half] u8 (one weight, or the picked layer of
+// a stacked one), scale: [O, 2] f32, y: [B, O] f32.  Every pointer 16-byte
+// aligned, every array contiguous (the wrapper checks).
 extern "C" int vt_q4_matmul(const void* x, const void* q, const void* scale,
                             void* y, int B, int O, int half, void* stream) {
-  return launch(q4_matmul_kernel, x, q, scale, y, B, O, half, stream);
+  return launch<false>(x, q, scale, y, B, O, half, stream);
 }
 
-// Same contract; q / scale point at the picked layer of a stacked weight.
-extern "C" int vt_q4_matmul_stacked(const void* x, const void* q,
-                                    const void* scale, void* y, int B, int O,
-                                    int half, void* stream) {
-  if (B < 1 || O < 1 || half < 16 || half % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 8) return launch_stacked<1>(x, q, scale, y, B, O, half, s);
-  if (B <= 16) return launch_stacked<2>(x, q, scale, y, B, O, half, s);
-  return launch_stacked<4>(x, q, scale, y, B, O, half, s);
-}
-
-// The folded arithmetic; scale is [2, O] f32 (the s_lo row, then the s_hi row).
+// The folded arithmetic; the same contract but scale [2, O] f32 (the s_lo
+// row, then the s_hi row).
 extern "C" int vt_q4_matmul_folded(const void* x, const void* q, const void* scale,
                                    void* y, int B, int O, int half, void* stream) {
-  return launch(q4_matmul_folded_kernel, x, q, scale, y, B, O, half, stream);
-}
-
-// Same contract; q / scale point at the picked layer ([O, half], [2, O]) of a
-// stacked [L, O, half] weight and [L, 2, O] scale.
-extern "C" int vt_q4_matmul_stacked_folded(const void* x, const void* q,
-                                           const void* scale, void* y, int B, int O,
-                                           int half, void* stream) {
-  return launch(q4_matmul_stacked_folded_kernel, x, q, scale, y, B, O, half, stream);
+  return launch<true>(x, q, scale, y, B, O, half, stream);
 }

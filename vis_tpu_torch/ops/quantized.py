@@ -8,7 +8,8 @@ output row per input half; vocab tables pad their rows with zeros.
 
 The matmul semantics are the JAX package's dequantized path: x rounded to
 bf16, the weight dequantized to bf16 (``unpack_int4``), products summed in
-f32, f32 out.  Two kernels carry it on the card (``csrc/q4_matmul.cu``):
+f32, f32 out.  One tensor-core matvec carries it on the card
+(``csrc/q4_matmul.cu``, ``q4_stacked_mma_kernel``), behind two wrappers:
 
 - ``q4_matmul`` (kernel B, TPU ``_q4_matmul_kernel``): one weight, the
   int4 vocab head;
@@ -29,15 +30,16 @@ multiplied by ``scale[o]`` afterwards.  Kernel D carries it on the card
   down(silu(gate(x)) * up(x)), with h rounded to bf16 before the down
   product; ``fused_mlp_applies`` is the JAX package's dispatch rule for it.
 
-The int4 probe tools (``vis_tpu_torch.tools``) add three functions, each
-with the TPU kernels' own folded arithmetic: the unsigned nibble n in
-[0, 15] times bf16 x, summed in f32, the -8 bias folded into a sum of x,
-the scale applied once after the sum (which A and B do not do: they round
-each (n - 8) * s to bf16).  Their scales are the probes' kernel layout,
-``[2, O]`` (the s_lo row, then the s_hi row):
+The int4 probe tools (``vis_tpu_torch.tools``) add three functions:
 
 - ``q4_matmul_folded`` / ``q4_matmul_stacked_folded`` (probe kernels J and
-  I / F, the folded entries of ``csrc/q4_matmul.cu``);
+  I / F): the TPU kernels' folded function, (x_lo . n_lo - 8 sum x_lo) s_lo
+  + (x_hi . n_hi - 8 sum x_hi) s_hi with n the unsigned nibble, bf16 x and
+  f32 sums, the scale applied once after the sum (A and B instead round
+  each (n - 8) * s to bf16).  Scales are the probes' layout ``[2, O]`` (the
+  s_lo row, then the s_hi row).  On the card they run A's kernel in its
+  folded form, which sums x_lo . (n_lo - 8) and x_hi . (n_hi - 8) apart, the
+  same value in another order, and scales each after the sum;
 - ``i4_matmul`` (probe kernel K, ``csrc/i4_matmul.cu``): signed int4 stored
   as adjacent two's-complement nibbles (``pack_int4_adjacent``), one scale
   per output row;
@@ -163,7 +165,8 @@ def _launch_q4(entry: str, x: torch.Tensor, q: torch.Tensor,
 
 
 def q4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Kernel B wrapper: x [B, I] . W^T for one int4 weight -> [B, O] f32."""
+    """Kernel B wrapper: x [B, I] . W^T for one int4 weight -> [B, O] f32
+    (on the card, the launch kernel A makes for a one-layer stack)."""
     if x.device.type == "cpu":
         return q4_matmul_plain(x, q, scale)
     y = _launch_q4("vt_q4_matmul", x, q, scale)
@@ -180,7 +183,7 @@ def q4_matmul_stacked(x: torch.Tensor, pick: QuantizedWeight4Pick) -> torch.Tens
     q, scale = pick.q[pick.idx], pick.scale[pick.idx]
     if x.device.type == "cpu":
         return q4_matmul_plain(x, q, scale)
-    y = _launch_q4("vt_q4_matmul_stacked", x, q, scale)
+    y = _launch_q4("vt_q4_matmul", x, q, scale)
     q4_matmul_stacked.launches += 1
     return y
 
@@ -438,8 +441,9 @@ def q4_matmul_folded_plain(x: torch.Tensor, q: torch.Tensor,
 
 def q4_matmul_folded(x: torch.Tensor, q: torch.Tensor, scale2: torch.Tensor) -> torch.Tensor:
     """Probe kernels J and I (``_q4_matmul_kernel_folded``, ``flat_folded``):
-    x [B, I] . W^T with the folded arithmetic for one int4 weight q [O, I/2]
-    and scales [2, O] -> [B, O] f32."""
+    x [B, I] . W^T with the folded function for one int4 weight q [O, I/2]
+    and scales [2, O] -> [B, O] f32 (on the card: kernel A's matvec, the
+    low and high nibbles' sums of x . (n - 8) kept apart, then scaled)."""
     if x.device.type == "cpu":
         return q4_matmul_folded_plain(x, q, scale2)
     y = _launch_q4("vt_q4_matmul_folded", x, q, scale2, (2, q.shape[0]))
@@ -452,13 +456,14 @@ q4_matmul_folded.launches = 0
 
 def q4_matmul_stacked_folded(x: torch.Tensor, q_stacked: torch.Tensor,
                              scale_stacked: torch.Tensor, idx: int) -> torch.Tensor:
-    """Probe kernel F (``_q4_stacked_folded_kernel``): the folded arithmetic
+    """Probe kernel F (``_q4_stacked_folded_kernel``): the folded function
     on layer ``idx`` of q [L, O, I/2] with scales [L, 2, O]; the layer is a
-    view of the stack, so nothing is copied."""
+    view of the stack, so nothing is copied (on the card, the same launch as
+    ``q4_matmul_folded``)."""
     q, scale2 = q_stacked[idx], scale_stacked[idx]
     if x.device.type == "cpu":
         return q4_matmul_folded_plain(x, q, scale2)
-    y = _launch_q4("vt_q4_matmul_stacked_folded", x, q, scale2, (2, q.shape[0]))
+    y = _launch_q4("vt_q4_matmul_folded", x, q, scale2, (2, q.shape[0]))
     q4_matmul_stacked_folded.launches += 1
     return y
 
