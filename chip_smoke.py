@@ -14,7 +14,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    share of that bound and one PyTorch call for the same function where
    there is one (scaled_dot_product_attention for C, the int4 and int8
    weight-only matmuls for A, B and D).  A runs every projection of both
-   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3); B, the
+   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3), D the int8
+   head and every int8 qkv and o projection (Qwen at B = 1 and 8, Llama at
+   B = 1 and 3), E one int8 MLP layer at both models' widths; B, the
    int4 head, runs A's kernel on a one-layer weight, must equal A on it bit
    for bit and give exactly 0 on zero-padded rows.  A kernel's time is that of a run of
    launches captured into a CUDA graph (``device_ms``), a plain version's
@@ -147,6 +149,9 @@ LLAMA_PROJECTIONS = {
 FLASH = dict(b=1, s=4096, h=16, d=80, length=3996)
 # The explainer's int8 vocab head: Llama-3.1-8B's 128256 rows padded to 128512.
 HEAD8 = (128512, 128256, 4096)
+# Layers of the int8 qkv and o stacks D's timing walks (more than the 50 MB
+# L2 holds).
+D_WALK = 8
 # Kernel E's shapes: (hidden, inter, stacked layers, batch rows); Qwen's
 # decode windows run 8 rows, Llama's scheduler 3 slots.
 MLP8 = {"qwen": (3584, 18944, 28, (1, 8)), "llama": (4096, 14336, 8, (1, 3))}
@@ -453,8 +458,59 @@ def _kernel_d(gen, dev) -> dict:
                   2 * 3 * rows * inn)
     print(f"[D] head B=3 bound {limit[0]:.4f} ms ({limit[1]})")
     library = _library_int8("head B=3", x, [(w.q, w.scale)], tag="D")
+    del w
+    torch.cuda.empty_cache()
+    worst = max(worst, _kernel_d_projections(gen, dev))
     return dict(err=worst, ms=times[3][0], plain_ms=times[3][1], bound=limit,
                 library_ms=library)
+
+
+def _kernel_d_projections(gen, dev) -> float:
+    """D at every int8 decoder projection of the main path, where most of its
+    launches go: qkv and o of Qwen2.5-VL-7B at B = 1 and 8 and of
+    Llama-3.1-8B at B = 1 and 3, each held to its plain version (1e-3 *
+    max|y|) and timed walking a stack of D_WALK layers, so that each launch
+    reads its weight from device memory as a decode does, beside its bound
+    and torch._weight_int8pack_mm on the same weights.  Returns the worst
+    error."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.serving.engine import random_q8_stack
+
+    worst = 0.0
+    for model, projections, batches in (("qwen", PROJECTIONS, (1, 8)),
+                                        ("llama", LLAMA_PROJECTIONS, (1, 3))):
+        for name in ("qkv", "o"):
+            out, inn = projections[name]
+            w = random_q8_stack(gen, D_WALK, out=out, inn=inn, device=dev)
+            for rows in batches:
+                x = torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16)
+                got = qz.q8_matmul(x, w.q[0], w.scale[0])
+                want = qz.q8_matmul_plain(x, w.q[0], w.scale[0])
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                tol = 1e-3 * want.abs().max().item()
+                if not err <= tol:
+                    raise AssertionError(f"kernel D {model} {name} B={rows}: {err} > {tol}")
+                worst = max(worst, err)
+                ms = device_ms(lambda i: qz.q8_matmul(x, w.q[i % D_WALK], w.scale[i % D_WALK]),
+                               2 * D_WALK)
+                plain = stream_ms(lambda i: qz.q8_matmul_plain(
+                    x, w.q[i % D_WALK], w.scale[i % D_WALK]), D_WALK)
+                weight = out * inn + out * 4
+                limit = bound(weight + rows * inn * 2 + rows * out * 4, 2 * rows * out * inn)
+                library = _library_int8(f"{model} {name} B={rows}", x, [
+                    (w.q[i], w.scale[i]) for i in range(D_WALK)], calls=2 * D_WALK, tag="D")
+                print(f"[D] {model} {name:3s} [{out}, {inn}] B={rows}: max|err| {err:.3e} <= tol "
+                      f"{tol:.3e}; kernel {ms:.4f} ms ({weight / (ms * 1e-3) / 1e9:.0f} GB/s of "
+                      f"weight, {limit[0] / ms:.1%} of bound {limit[0]:.4f} ms ({limit[1]})), "
+                      f"plain {plain:.4f} ms, library "
+                      + ("none" if library is None else f"{library:.4f} ms "
+                         f"(kernel/library {ms / library:.2f}x)"))
+            del w
+            torch.cuda.empty_cache()
+    return worst
 
 
 def _kernel_e(gen, dev) -> dict:
@@ -464,8 +520,9 @@ def _kernel_e(gen, dev) -> dict:
     a sum taken in another order can move an element of h, or of y, by one
     bf16 step: max|err| <= 2^-7 * max|y|.  The same kernel with gate and
     up swapped must miss by more, which shows the bound catches a wrong
-    kernel.  Timing walks the stack, so each launch reads its weights from
-    device memory, as a decode step does."""
+    kernel, and a second run must give the same bits (no atomics).  Timing
+    walks the stack, so each launch reads its weights from device memory, as
+    a decode step does."""
     import torch
 
     from vis_tpu_torch.ops import quantized as qz
@@ -491,16 +548,18 @@ def _kernel_e(gen, dev) -> dict:
                 swapped = qz.fused_swiglu_mlp(x, qz.QuantizedWeight(
                     torch.cat([gu.q[inter:], gu.q[:inter]]),
                     torch.cat([gu.scale[inter:], gu.scale[:inter]])), dn)
+                again = torch.equal(got, qz.fused_swiglu_mlp(x, gu, dn))
                 torch.cuda.synchronize()
                 scale = want.float().abs().max().item()
                 err = (got.float() - want.float()).abs().max().item()
                 miss = (swapped.float() - want.float()).abs().max().item()
                 finite = bool(torch.isfinite(got).all())
                 print(f"[E] {model} H={hidden} I={inter} B={rows} idx={idx:2d}: max|err| "
-                      f"{err:.3e} <= tol {tol_e * scale:.3e}; gate/up swapped {miss:.3e} > tol")
-                if not (finite and err <= tol_e * scale):
+                      f"{err:.3e} <= tol {tol_e * scale:.3e}; gate/up swapped {miss:.3e} > tol; "
+                      f"a second run bit-equal: {again}")
+                if not (finite and err <= tol_e * scale and again):
                     raise AssertionError(f"kernel E {model} B={rows} idx={idx}: {err} > "
-                                         f"{tol_e * scale} or non-finite")
+                                         f"{tol_e * scale}, non-finite, or two runs differ")
                 if not miss > tol_e * scale:
                     raise AssertionError(f"kernel E check misses swapped gate/up: {miss}")
                 worst = max(worst, err)
@@ -1481,7 +1540,7 @@ KERNELS = {  # key: (wrapper, source, the TPU kernel it replaces)
     "I": ("q4_matmul_folded", "vis_tpu_torch/csrc/q4_matmul.cu",
           "tools/probe_stacked_fused.py:376"),
     "J": ("q4_matmul_folded", "vis_tpu_torch/csrc/q4_matmul.cu", "tools/probe_unpack.py:55"),
-    "K": ("i4_matmul", "vis_tpu_torch/csrc/i4_matmul.cu", "tools/probe_unpack.py:105"),
+    "K": ("i4_matmul", "vis_tpu_torch/csrc/q4_matmul.cu", "tools/probe_unpack.py:105"),
     "L": ("u8_sum", "vis_tpu_torch/csrc/int_dot.cu", "tools/probe_unpack2.py:64"),
     "M": ("i8_matmul", "vis_tpu_torch/csrc/int_dot.cu", "tools/probe_unpack2.py:88"),
     "N": ("q8_matmul", "vis_tpu_torch/csrc/q8_matmul.cu", "tools/probe_unpack2.py:120"),

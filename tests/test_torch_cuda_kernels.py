@@ -8,15 +8,19 @@ NVIDIA GPU and nvcc, and skip elsewhere:
 (``--noconftest`` on a machine with a card and no jax: the conftest imports
 it).  Tolerances: the int4 and int8 kernels differ from their plain version
 only in the order of the f32 sums, max|err| <= 1e-4 * max|y|, and int8
-rows padded with zeros (scale 0) give exactly 0; the fused int8 MLP (E)
-returns bf16 and rounds h to bf16 inside, so a sum in another order can
-move an element of h or of y by one bf16 step: max|err| <= 2^-7 * max|y|,
-which the same kernel with gate and up swapped must exceed, and two runs
-must agree bit for bit (no atomics).  The int4 probe kernels: the folded
-pair (F, I, J) and signed int4 (K) differ from their plain versions only in
-the order of the f32 sums, max|err| <= 1e-4 * max|y|, and K with its
-nibble order flipped, or the folded pair with its s_lo and s_hi scale rows
-exchanged, must miss that; the folded pair gives the same bits twice; the fused slab MLP (H) rounds act to
+rows padded with zeros (scale 0) give exactly 0; the fused int8 MLP (E, two
+launches of a tensor-core matvec: gate, up and SwiGLU, then down) returns
+bf16 and rounds h to bf16 inside, so a sum in another order can move an
+element of h or of y by one bf16 step: max|err| <= 2^-7 * max|y|, which the
+same kernel with gate and up swapped must exceed, and two runs must agree
+bit for bit (no atomics); its cases include one layer at Qwen2.5-VL-7B's
+and Llama-3.1-8B's widths at every batch of 1 to 8 rows, and hidden and
+intermediate sizes that are multiples of 16 but not of 64.  The int4 probe
+kernels: the folded pair (F, I, J) and signed int4 (K, the signed form of
+kernel A's matvec) differ from their plain versions only in the order of
+the f32 sums, max|err| <= 1e-4 * max|y|, and K with its nibble order
+flipped, or the folded pair with its s_lo and s_hi scale rows exchanged,
+must miss that; both give the same bits twice; the fused slab MLP (H) rounds act to
 bf16 inside, so a flip of one act value in 32 is allowed, max|err| <=
 2^-12 * max_o sum_i |act_i w_oi| + 1e-4 * max|y|, which the same kernel
 with one slab's gate and up swapped must exceed, and two runs must agree
@@ -81,10 +85,21 @@ Q8_CASES = {  # name: (rows, out, in, zero-padded rows at the end)
 }
 E_CASES = {  # name: (rows, hidden, inter)
     "1x256x384": (1, 256, 384),
-    "3x512x208": (3, 512, 208),       # inter not a multiple of the 16-column block
-    "8x2064x512": (8, 2064, 512),     # two x stages, a 16-column last stage
-    "9x1024x2816": (9, 1024, 2816),   # two batch passes; the small profile's MLP
-    "128x256x128": (128, 256, 128),
+    "3x512x208": (3, 512, 208),       # inter not a multiple of 64 (a ragged last chunk)
+    "8x2064x512": (8, 2064, 512),     # hidden not a multiple of 64
+    "9x1024x2816": (9, 1024, 2816),   # two n-tiles; the small profile's MLP
+    "128x256x128": (128, 256, 128),   # four passes of four n-tiles
+    # Hidden and inter multiples of 16 but not of 64: ragged chunks in both
+    # stages, and in stage 2 a slab that ends inside a chunk.
+    "1x208x336": (1, 208, 336),
+    "5x336x208": (5, 336, 208),
+    "9x208x1104": (9, 208, 1104),
+    "17x1040x336": (17, 1040, 336),
+    "128x80x48": (128, 80, 48),
+    # One layer at the main path's widths, every batch of a window or a
+    # scheduler step: stage 1 a warp a tile, stage 2 K split 8 ways, h in slabs.
+    **{f"qwen-{b}x3584x18944": (b, 3584, 18944) for b in range(1, 9)},
+    **{f"llama-{b}x4096x14336": (b, 4096, 14336) for b in range(1, 9)},
 }
 FOLD_CASES = {  # name: (rows, out, in, stacked layers or 0)
     "single-1x200x512": (1, 200, 512, 0),
@@ -93,10 +108,19 @@ FOLD_CASES = {  # name: (rows, out, in, stacked layers or 0)
     "stacked-3x520x768": (3, 520, 768, 3),
     "single-1x37880x512": (1, 37880, 512, 0),  # past 2112 tiles, the last one ragged
 }
-I4_CASES = {  # name: (rows, out, in)
+I4_CASES = {  # name: (rows, out, in); K runs the signed form of kernel A's matvec
     "1x200x512": (1, 200, 512),
     "9x1000x256": (9, 1000, 256),
     "128x64x1024": (128, 64, 1024),
+    # B = 1, 3, 8, 9, 17, 32; out not a multiple of 16, in / 2 a multiple of
+    # 16 but not of 64 (the last chunk ragged), and the probe's gate_up (a
+    # warp a tile, 2368 tiles) and down (K split, three x slabs at B = 8).
+    "1x37880x3584": (1, 37880, 3584),
+    "3x1000x1056": (3, 1000, 1056),
+    "8x3584x18944": (8, 3584, 18944),
+    "9x200x96": (9, 200, 96),
+    "17x1000x1056": (17, 1000, 1056),
+    "32x520x96": (32, 520, 96),
 }
 H_CASES = {  # name: (rows, hidden, inter, slab rows)
     "1x256x512x128": (1, 256, 512, 128),
@@ -209,9 +233,10 @@ def test_folded_kernel_matches_plain(card, name):
 
 @pytest.mark.parametrize("name", list(I4_CASES))
 def test_i4_kernel_matches_plain(card, name):
-    err, scale, flipped = card[f"i4/{name}"].tolist()
+    err, scale, flipped, repeatable = card[f"i4/{name}"].tolist()
     assert err <= 1e-4 * scale, (err, scale)
     assert flipped > 1e-4 * scale, (flipped, scale)
+    assert repeatable == 1.0
 
 
 @pytest.mark.parametrize("name", list(H_CASES))
@@ -264,7 +289,7 @@ def test_each_case_counted_one_launch(card):
         # The checked run, the repeat, the run with the scale rows swapped.
         3 * sum(1 for *_, layers in FOLD_CASES.values() if not layers),
         3 * sum(1 for *_, layers in FOLD_CASES.values() if layers),
-        2 * len(I4_CASES),  # the checked run and the flipped-nibble run
+        3 * len(I4_CASES),  # the checked run, the flipped-nibble run, the repeat
         3 * len(H_CASES),   # the checked run, the swapped-slab run, the repeat
         len(L_CASES),
         len(INT_CASES),

@@ -639,7 +639,8 @@ def case_cuda_kernels(inp):
         got, want = qz.i4_matmul(x, q, scale), qz.i4_matmul_plain(x, q, scale)
         flipped = qz.i4_matmul(x, (q >> 4) | (q << 4), scale)
         out[f"i4/{name}"] = np.array([(got - want).abs().max().item(), want.abs().max().item(),
-                                      (flipped - want).abs().max().item()])
+                                      (flipped - want).abs().max().item(),
+                                      float(torch.equal(got, qz.i4_matmul(x, q, scale)))])
     for name, (rows, hidden, inter, bi) in json.loads(str(inp["h_cases"])).items():
         stacks = (torch.randint(0, 256, (2, 2 * inter, hidden // 2), generator=gen, device=dev,
                                 dtype=torch.uint8),

@@ -26,7 +26,8 @@ multiplied by ``scale[o]`` afterwards.  Kernel D carries it on the card
 - ``q8_matmul`` (kernel D, TPU ``_q8_matmul_kernel``): int8 vocab heads and,
   under QUANTIZATION=int8, every decoder's qkv and o projections;
 - ``fused_swiglu_mlp`` (kernel E, TPU ``_fused_mlp_kernel``,
-  ``csrc/q8_swiglu.cu``): a whole int8 decoder MLP,
+  ``csrc/q8_swiglu.cu``, two launches of an int8 tensor-core matvec): a
+  whole int8 decoder MLP,
   down(silu(gate(x)) * up(x)), with h rounded to bf16 before the down
   product; ``fused_mlp_applies`` is the JAX package's dispatch rule for it.
 
@@ -40,9 +41,10 @@ The int4 probe tools (``vis_tpu_torch.tools``) add three functions:
   s_lo row, then the s_hi row).  On the card they run A's kernel in its
   folded form, which sums x_lo . (n_lo - 8) and x_hi . (n_hi - 8) apart, the
   same value in another order, and scales each after the sum;
-- ``i4_matmul`` (probe kernel K, ``csrc/i4_matmul.cu``): signed int4 stored
-  as adjacent two's-complement nibbles (``pack_int4_adjacent``), one scale
-  per output row;
+- ``i4_matmul`` (probe kernel K): signed int4 stored as adjacent
+  two's-complement nibbles (``pack_int4_adjacent``), one scale per output
+  row; on the card A's kernel in its signed form, the row's scale applied
+  once after the f32 sum;
 - ``q4_fused_mlp_slab`` (probe kernel H, ``csrc/q4_fused_mlp.cu``): a whole
   int4 SwiGLU MLP over the probe's per-slab layout (``repack_slabs``).
 
@@ -501,7 +503,7 @@ def i4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     """Probe kernel K wrapper (``_i4_matmul_kernel``): x [B, I] . w^T * scale
     for a signed int4 weight packed by ``pack_int4_adjacent`` (q [O, I/2] u8)
     and one scale per output row (scale [1, O] f32, the probe's layout) ->
-    [B, O] f32."""
+    [B, O] f32 (on the card: kernel A's matvec in its signed form)."""
     if x.device.type == "cpu":
         return i4_matmul_plain(x, q, scale)
     y = _launch_q4("vt_i4_matmul", x, q, scale, (1, q.shape[0]))
