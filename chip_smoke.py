@@ -1529,13 +1529,13 @@ KERNELS = {  # key: (wrapper, source, the TPU kernel it replaces)
     "C": ("flash_attention", "vis_tpu_torch/csrc/flash_attention.cu",
           "vis_tpu/ops/flash_attention.py:41"),
     "D": ("q8_matmul", "vis_tpu_torch/csrc/q8_matmul.cu", "vis_tpu/ops/quantized.py:74"),
-    "E": ("fused_swiglu_mlp", "vis_tpu_torch/csrc/q8_swiglu.cu",
+    "E": ("fused_swiglu_mlp", "vis_tpu_torch/csrc/q8_matmul.cu",
           "vis_tpu/ops/quantized.py:164"),
     "F": ("q4_matmul_stacked_folded", "vis_tpu_torch/csrc/q4_matmul.cu",
           "tools/probe_stacked_fused.py:59"),
     "G": ("q4_matmul_stacked", "vis_tpu_torch/csrc/q4_matmul.cu",
           "tools/probe_stacked_fused.py:108"),
-    "H": ("q4_fused_mlp_slab", "vis_tpu_torch/csrc/q4_fused_mlp.cu",
+    "H": ("q4_fused_mlp_slab", "vis_tpu_torch/csrc/q4_matmul.cu",
           "tools/probe_stacked_fused.py:130"),
     "I": ("q4_matmul_folded", "vis_tpu_torch/csrc/q4_matmul.cu",
           "tools/probe_stacked_fused.py:376"),

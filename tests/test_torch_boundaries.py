@@ -16,7 +16,7 @@ PORT_FILES = sorted((REPO / "vis_tpu_torch").rglob("*.py")) + [REPO / "chip_smok
 # Every file of the port, and the scripts that drive it with vis_tpu blocked.
 STANDALONE_FILES = PORT_FILES + [REPO / "tools" / "profile_port_decode.py",
                                  REPO / "tools" / "compare_slices.py",
-                                 REPO / "tools" / "compare_kernel_e.py",
+                                 REPO / "tools" / "compare_kernels.py",
                                  REPO / "tests" / "torch_port_runner.py"]
 KERNEL_MODULES = [REPO / "vis_tpu_torch" / "ops" / n
                   for n in ("quantized.py", "flash_attention.py", "int_dot.py")]

@@ -8,8 +8,15 @@ NVIDIA GPU and nvcc, and skip elsewhere:
 (``--noconftest`` on a machine with a card and no jax: the conftest imports
 it).  Tolerances: the int4 and int8 kernels differ from their plain version
 only in the order of the f32 sums, max|err| <= 1e-4 * max|y|, and int8
-rows padded with zeros (scale 0) give exactly 0; the fused int8 MLP (E, two
-launches of a tensor-core matvec: gate, up and SwiGLU, then down) returns
+rows padded with zeros (scale 0) give exactly 0.  Kernel D (the int8
+matmul) runs E's tensor-core matvec since it left its CUDA-core loop: its
+cases take both models' qkv and o widths at every batch of 1 to 8 rows and
+at 16, 32 and 128 (the K split across a block's warps, x read from L2 with
+the weights at B <= 8 and staged in slabs above, more passes past 32
+rows), and a row count that is no multiple of 16; every D case must repeat
+bit for bit, and with two or more rows the same kernel with x's first two
+rows swapped must miss the tolerance.  The fused int8 MLP (E, two
+launches of that matvec: gate, up and SwiGLU, then down) returns
 bf16 and rounds h to bf16 inside, so a sum in another order can move an
 element of h or of y by one bf16 step: max|err| <= 2^-7 * max|y|, which the
 same kernel with gate and up swapped must exceed, and two runs must agree
@@ -20,11 +27,14 @@ kernels: the folded pair (F, I, J) and signed int4 (K, the signed form of
 kernel A's matvec) differ from their plain versions only in the order of
 the f32 sums, max|err| <= 1e-4 * max|y|, and K with its nibble order
 flipped, or the folded pair with its s_lo and s_hi scale rows exchanged,
-must miss that; both give the same bits twice; the fused slab MLP (H) rounds act to
-bf16 inside, so a flip of one act value in 32 is allowed, max|err| <=
-2^-12 * max_o sum_i |act_i w_oi| + 1e-4 * max|y|, which the same kernel
-with one slab's gate and up swapped must exceed, and two runs must agree
-bit for bit.  The int8 probe's kernels: the byte sum (L) equals its plain
+must miss that; both give the same bits twice.  The fused slab MLP (H)
+runs kernel A's matvec since it left its CUDA-core kernels (a gated folded
+form into act, the folded form once per slab, an ordered sum of the slabs):
+it rounds act to bf16 inside, so a flip of one act value in 32 is allowed,
+max|err| <= 2^-12 * max_o sum_i |act_i w_oi| + 1e-4 * max|y|, which the same
+kernel with one slab's gate and up swapped must exceed, and two runs must
+agree bit for bit; its cases include half a slab row that is no multiple of
+64 bytes, up to 32 rows, and down scales that differ from slab to slab.  The int8 probe's kernels: the byte sum (L) equals its plain
 version and torch.sum(dtype=int32) bit for bit, and the large cases wrap;
 M, O and P have exact int32 sums and an epilogue of rounded (never fused)
 operations, so they equal their plain versions bit for bit, and O with its
@@ -78,10 +88,19 @@ Q4_CASES = {  # name: (rows, out, in, stacked layers or 0)
 }
 Q8_CASES = {  # name: (rows, out, in, zero-padded rows at the end)
     "1x200x512": (1, 200, 512, 8),
-    "3x1000x4096": (3, 1000, 4096, 40),  # two 2048-column x stages
-    "9x64x2064": (9, 64, 2064, 0),       # two batch passes, a 16-column last stage
-    "128x40x16": (128, 40, 16, 3),
-    "5x33x4112": (5, 33, 4112, 1),
+    "3x1000x4096": (3, 1000, 4096, 40),
+    "9x64x2064": (9, 64, 2064, 0),       # two n-tiles, a 16-column last chunk
+    "128x40x16": (128, 40, 16, 3),       # four passes of four n-tiles, one chunk
+    "5x33x4112": (5, 33, 4112, 1),       # out not a multiple of 16
+    # Kernel D at the main path's qkv and o widths of Qwen2.5-VL-7B and
+    # Llama-3.1-8B (224-384 tiles: K split across a block's warps), at every
+    # batch of a window or a scheduler step, and at 16, 32 and 128 rows (two
+    # and four n-tiles with x staged in slabs, four passes).
+    **{f"{model}-{name}-{b}x{out}x{inn}": (b, out, inn, 16)
+       for model, widths in (("qwen", ((4608, 3584), (3584, 3584))),
+                             ("llama", ((6144, 4096), (4096, 4096))))
+       for name, (out, inn) in zip(("qkv", "o"), widths)
+       for b in (*range(1, 9), 16, 32, 128)},
 }
 E_CASES = {  # name: (rows, hidden, inter)
     "1x256x384": (1, 256, 384),
@@ -122,11 +141,18 @@ I4_CASES = {  # name: (rows, out, in); K runs the signed form of kernel A's matv
     "17x1000x1056": (17, 1000, 1056),
     "32x520x96": (32, 520, 96),
 }
-H_CASES = {  # name: (rows, hidden, inter, slab rows)
-    "1x256x512x128": (1, 256, 512, 128),
-    "9x512x384x96": (9, 512, 384, 96),        # two batch passes, 3-chunk slab rows
-    "8x3584x2368x1184": (8, 3584, 2368, 1184),  # the probe's hidden and slab width
-    "128x256x256x32": (128, 256, 256, 32),
+H_CASES = {  # name: (rows, hidden, inter, slab rows, unequal per-slab down scales)
+    "1x256x512x128": (1, 256, 512, 128, 0),
+    "9x512x384x96": (9, 512, 384, 96, 0),        # two n-tiles, half a slab row 48 bytes
+    "8x3584x2368x1184": (8, 3584, 2368, 1184, 0),  # the probe's hidden and slab width
+    "128x256x256x32": (128, 256, 256, 32, 0),
+    # Each slab's down scales its own (the probe's repack broadcasts one pair
+    # to every slab), half a slab row not a multiple of 64 bytes (a partial
+    # last chunk), B up to 32, and the probe's whole layer.
+    "17x512x384x96-unequal": (17, 512, 384, 96, 1),
+    "32x3584x2368x1184-unequal": (32, 3584, 2368, 1184, 1),
+    "3x1024x768x192-unequal": (3, 1024, 768, 192, 1),
+    "1x3584x18944x1184-unequal": (1, 3584, 18944, 1184, 1),
 }
 L_CASES = {  # name: (rows, width, fill byte or -1 for random bytes)
     "1x16": (1, 16, -1),
@@ -197,9 +223,12 @@ def test_b_is_a_on_a_one_layer_stack(card, name):
 
 @pytest.mark.parametrize("name", list(Q8_CASES))
 def test_q8_kernel_matches_plain(card, name):
-    err, scale, padded = card[f"q8/{name}"].tolist()
+    err, scale, padded, repeatable, swapped = card[f"q8/{name}"].tolist()
     assert err <= 1e-4 * scale, (err, scale)
     assert padded == 0.0
+    assert repeatable == 1.0  # a second run gives the same bits
+    if Q8_CASES[name][0] > 1:  # x's first two rows swapped must miss
+        assert swapped > 1e-4 * scale, (swapped, scale)
 
 
 @pytest.mark.parametrize("name", list(E_CASES))
@@ -284,7 +313,8 @@ def test_each_case_counted_one_launch(card):
         2 * sum(1 for *_, layers in Q4_CASES.values() if layers)
         + sum(1 for *_, layers in Q4_CASES.values() if not layers),
         2 * len(FLASH_CASES) + 1,  # the checked run and the repeat; the negative scale
-        len(Q8_CASES),
+        # The checked run, the repeat, and with two rows the swapped run.
+        2 * len(Q8_CASES) + sum(1 for rows, *_ in Q8_CASES.values() if rows > 1),
         3 * len(E_CASES),  # the checked run, the gate/up-swapped run, the repeat
         # The checked run, the repeat, the run with the scale rows swapped.
         3 * sum(1 for *_, layers in FOLD_CASES.values() if not layers),

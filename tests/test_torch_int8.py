@@ -29,7 +29,7 @@ from vis_tpu.models.llama.config import _LLAMA3_SCALING
 from vis_tpu.ops.quantized import quantize_weight, quantized_matmul
 from torch_port import run_port
 
-ROWS = (1, 3, 130)
+ROWS = (1, 3, 8, 130)
 ROPE = [(128, 500000.0, 1), (16, 500000.0, 1), (128, 500000.0, 0), (64, 10000.0, 1)]
 
 

@@ -5,7 +5,11 @@ linked or loaded on a machine with a card; an argument count that differs
 passes ctypes silently.  These tests read the files as text (no torch, no
 build) and hold the table and the sources ``vis_tpu_torch/csrc/*.cu`` to
 each other: every signature has exactly one ``extern "C" int <name>(``
-with as many parameters, and every such entry has a signature."""
+with as many parameters, and every such entry has a signature.  They also
+hold ``chip_smoke.py``'s ``KERNELS`` table, which names each kernel's source
+in the lines the card run prints, to the files: every named source exists
+and defines the C entry that the named wrapper calls, so a kernel that moves
+to another file cannot leave the table pointing at the old one."""
 
 import ast
 import re
@@ -13,7 +17,9 @@ from pathlib import Path
 
 import pytest
 
-PORT = Path(__file__).resolve().parents[1] / "vis_tpu_torch"
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "vis_tpu_torch"
+WRAPPER_MODULES = [PORT / "ops" / n for n in ("quantized.py", "int_dot.py", "flash_attention.py")]
 ENTRY = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', re.S)
 
 
@@ -50,3 +56,43 @@ def test_signature_has_one_entry_with_its_arity(name):
 def test_every_entry_has_a_signature():
     unbound = [(src, name) for src, name, _ in _entries() if name not in SIGNATURES]
     assert not unbound, unbound
+
+
+def _kernel_table() -> dict:
+    """``KERNELS`` from chip_smoke.py's source: key -> (wrapper, source, replaces)."""
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == "KERNELS"):
+            return {key.value: tuple(elt.value for elt in value.elts)
+                    for key, value in zip(node.value.keys, node.value.values)}
+    raise AssertionError("chip_smoke.py defines no KERNELS")
+
+
+def _entries_called(wrapper: str) -> set:
+    """The C entries (``vt_*``) that the wrapper function names, as a string
+    or as an attribute of the library, in the port's kernel modules."""
+    called = set()
+    for path in WRAPPER_MODULES:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.FunctionDef) and node.name == wrapper:
+                for inner in ast.walk(node):
+                    if isinstance(inner, ast.Constant) and isinstance(inner.value, str):
+                        called.update(re.findall(r"\bvt_\w+", inner.value))
+                    elif isinstance(inner, ast.Attribute) and inner.attr.startswith("vt_"):
+                        called.add(inner.attr)
+    return called
+
+
+KERNEL_TABLE = _kernel_table()
+
+
+@pytest.mark.parametrize("key", sorted(KERNEL_TABLE))
+def test_chip_smoke_kernel_source_defines_the_wrappers_entry(key):
+    wrapper, source, _ = KERNEL_TABLE[key]
+    path = REPO / source
+    assert path.is_file(), (key, source)
+    called = _entries_called(wrapper)
+    assert called, (key, wrapper, "names no vt_ entry")
+    defined = {name for name, _ in ENTRY.findall(path.read_text())}
+    assert called <= defined, (key, source, sorted(called - defined))

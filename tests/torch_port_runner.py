@@ -575,9 +575,12 @@ def case_cuda_kernels(inp):
         q[out_dim - padded:], scale[out_dim - padded:] = 0, 0.0
         x = torch.randn((rows, in_dim), generator=gen, device=dev)
         got, want = qz.q8_matmul(x, q, scale), qz.q8_matmul_plain(x, q, scale)
+        again = float(torch.equal(got, qz.q8_matmul(x, q, scale)))
+        swapped = (qz.q8_matmul(x[[1, 0, *range(2, rows)]], q, scale) - want).abs().max().item() \
+            if rows > 1 else 0.0
         out[f"q8/{name}"] = np.array([(got - want).abs().max().item(), want.abs().max().item(),
                                       got[:, out_dim - padded:].abs().max().item()
-                                      if padded else 0.0])
+                                      if padded else 0.0, again, swapped])
     for name, (d, causal, lens, seq) in json.loads(str(inp["flash_cases"])).items():
         q, k, v = (torch.randn((2, seq, 3, d), generator=gen, device=dev).to(torch.bfloat16)
                    for _ in range(3))
@@ -641,7 +644,7 @@ def case_cuda_kernels(inp):
         out[f"i4/{name}"] = np.array([(got - want).abs().max().item(), want.abs().max().item(),
                                       (flipped - want).abs().max().item(),
                                       float(torch.equal(got, qz.i4_matmul(x, q, scale)))])
-    for name, (rows, hidden, inter, bi) in json.loads(str(inp["h_cases"])).items():
+    for name, (rows, hidden, inter, bi, unequal) in json.loads(str(inp["h_cases"])).items():
         stacks = (torch.randint(0, 256, (2, 2 * inter, hidden // 2), generator=gen, device=dev,
                                 dtype=torch.uint8),
                   0.01 + torch.rand((2, 2, 2 * inter), generator=gen, device=dev) * 0.01,
@@ -649,6 +652,9 @@ def case_cuda_kernels(inp):
                                 dtype=torch.uint8),
                   0.01 + torch.rand((2, 2, hidden), generator=gen, device=dev) * 0.01)
         slabs = qz.repack_slabs(*stacks, bi)
+        if unequal:  # each slab's down scales its own
+            slabs = (*slabs[:3], slabs[3] * (0.5 + torch.rand(
+                (2, inter // bi, 1, 1), generator=gen, device=dev)))
         x = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
         got = qz.q4_fused_mlp_slab(x, *slabs, 1)
         want = qz.q4_fused_mlp_slab_plain(x, *slabs, 1)

@@ -1,7 +1,7 @@
 // Int4 weight-only matmul for Hopper (sm_90a): y[B, O] f32 = x[B, I] . W[O, I]^T
 //
-// One kernel on the tensor cores (q4_stacked_mma_kernel, below) in three
-// forms, behind three entries.  It replaces two Pallas TPU kernels of the JAX
+// One kernel on the tensor cores (q4_stacked_mma_kernel, below) in four
+// forms, behind four entries.  It replaces two Pallas TPU kernels of the JAX
 // package, in its rounded form:
 //   A: vis_tpu/ops/quantized.py:_q4_stacked_kernel (layer `idx` of a stacked
 //      [L, O, I/2] weight; every decoder projection of a lookahead window)
@@ -15,8 +15,38 @@
 // and, in its signed form, one more:
 //   K: tools/probe_unpack.py:_i4_matmul_kernel (native signed int4)
 //                                                       -> entry vt_i4_matmul
+// and, in a gated form and a slab-batched launch of the folded form, the
+// probes' fused int4 SwiGLU MLP:
+//   H: tools/probe_stacked_fused.py:_q4_fused_mlp_kernel (launched by
+//      q4_fused_mlp, variant F)                         -> entry vt_q4_fused_mlp
 // An entry takes one layer's pointers: in torch `stack.q[idx]` is a view, so
 // A and B, and F, J and I, are the same launch.
+//
+// H over repack_slabs' per-slab layout (one layer): gq [n, 2bi, H/2] u8 (slab
+// j: gate rows, then up rows, split-half packed), gs [n, 2, 2bi] (slab j's
+// s_lo row, then its s_hi row), dq [n, H, bi/2] u8 (slab j's act column c
+// low, c + bi/2 high), ds [n, 2, H]; y = sum over j = 0..n-1, in that
+// order, of slab j's folded down product of act_j = bf16(g sigmoid(g) u).
+// What bounds it: the weight bytes, 3 H I / 2 (101.8 MB at the probe's 16
+// slabs of 1184, H 3584) and 0.8 MB of scales, 0.031 ms at 3.35 TB/s.  The
+// TPU walks the slabs in grid order and carries y in its output block
+// (o_ref += d); blocks on Hopper run in no order and a float atomicAdd would
+// change the sum's order from run to run, so H is three launches on one
+// stream, each output summed in a fixed order:
+//   1. Gated (the folded form with two M operands, as q8_matmul.cu's gated
+//      form for kernel E): a warp owns 16 act columns of one slab and reads
+//      their gate and up rows against one x fragment; the lo and hi sums of
+//      each stay apart, are scaled after the sum, and the lane-local
+//      epilogue writes act = bf16(g * sigmoid(g) * u) slab-major, to a
+//      [n, B, bi] bf16 scratch, so that slab j's act is a contiguous
+//      [B, bi] x of the folded form (1184 tiles at the probe's shape);
+//   2. the folded form once per slab, one launch over (tile, slab) on grid
+//      z: x = act[j] (half = bi / 2 = 592, a multiple of 16 but not of 64:
+//      every row ends in a partial chunk), q = dq[j], scale = ds[j], each
+//      slab's partial to a [n, B, H] f32 scratch (16 x 224 = 3584 warp
+//      tiles, enough to fill the card with no K split);
+//   3. slab_sum_kernel: y = ((0 + d_0) + d_1) + ... + d_{n-1} in f32, the
+//      plain version's order and the TPU's.
 //
 // Weight layout (same bytes as the JAX package): q[o, j] packs input j in the
 // low nibble and input j + I/2 in the high nibble, both stored as value + 8.
@@ -93,8 +123,8 @@
 //     and qkv: 224-384) 8-warp blocks, two a SM, split K between their warps
 //     (2, 4 or 8 ways), and the partial sums are added in shared memory in
 //     warp order: no atomics, the same bits every run.
-//   - Each lane keeps the next two chunks' weight loads (4 x 16 bytes) in
-//     flight while it computes the current one.
+//   - Each lane keeps the next two chunks' weight loads (4 x 16 bytes; the
+//     gated form 8) in flight while it computes the current one.
 //   - B > 8 runs 2 or 4 n-tiles a block (up to 32 batch rows) and more rows
 //     in blocks of their own (grid y).
 
@@ -110,12 +140,13 @@ namespace {
 
 constexpr int kAWarps = 8;                // warps a block when K is split or B > 8
 constexpr int kAMaxWarps = 20;            // a block's warps at most (one a tile, B <= 8)
+constexpr int kAGatedMaxWarps = 10;       // the same, gated (two operands' registers)
 constexpr int kChunk = 64;                // packed bytes of a row per warp step
 constexpr int kSlabBudget = 72 * 1024;    // bytes of x a block stages at once
 constexpr int kMaxPassRows = 32;          // batch rows a block takes (4 n-tiles)
 constexpr int kASmemMax = kSlabBudget + kMaxPassRows * 16;
 
-enum class Form { Rounded, Folded, Signed };
+enum class Form { Rounded, Folded, Signed, Gated };
 
 // n - 8 for the nibble in byte `Byte` of `nibbles` (each byte holds one
 // nibble): 0x4B0000nn is 2^23 + n as a float, exactly.
@@ -186,7 +217,7 @@ __device__ __forceinline__ void dequant_word(uint32_t w0, uint32_t w1, float s0_
   }
   const uint32_t n0 = w0 & 0x0F0F0F0Fu, h0 = (w0 >> 4) & 0x0F0F0F0Fu;
   const uint32_t n1 = w1 & 0x0F0F0F0Fu, h1 = (w1 >> 4) & 0x0F0F0F0Fu;
-  if constexpr (F == Form::Folded) {
+  if constexpr (F == Form::Folded || F == Form::Gated) {
     a_lo[0] = centred2<0, 1>(n0);
     a_lo[1] = centred2<0, 1>(n1);
     a_lo[2] = centred2<2, 3>(n0);
@@ -247,18 +278,38 @@ __device__ __forceinline__ void x_frags(uint32_t at, int slab, uint32_t swz, boo
 }
 
 // y[B, O] f32 = x[B, 2*half] . W^T for one layer's q [O, half]; scale is
-// [O, 2] rounded, [2, O] folded, [1, O] signed.
-// Grid: (blocks of warps / splits 16-row tiles, passes of NT * 8 batch rows).
-// Warp w takes tile w % tiles_per_block and every splits-th chunk from
-// w / tiles_per_block.  Shared memory holds the pass's x rows for one slab of
-// `slab` packed bytes: [lo inputs | hi inputs | 16 bytes of pad] per row
-// (signed: the slab's 2 * slab contiguous inputs, swizzled, then the pad).
+// [O, 2] rounded, [2, O] folded, [1, O] signed.  Folded, grid z walks a
+// stack of such matvecs at their natural strides (x [B, 2*half], q [O,
+// half], scale [2, O], y [B, O] each): H's per-slab down products.  Gated
+// (H's stage 1): O = n * bi act columns of n slabs of bi = slab_rows; column
+// o = j * bi + c reads gate row j * 2bi + c and up row j * 2bi + bi + c of q
+// [n * 2bi, half] as two M operands (scales [n, 2, 2bi]: slab j's s_lo row,
+// then its s_hi row) and writes act[j, b, c] = bf16(g * sigmoid(g) * u) to
+// y, a bf16 [n, B, bi].
+// Grid: (blocks of warps / splits 16-row tiles, passes of NT * 8 batch rows,
+// matvecs of the stack).  Warp w takes tile w % tiles_per_block and every
+// splits-th chunk from w / tiles_per_block.  Shared memory holds the pass's
+// x rows for one slab of `slab` packed bytes: [lo inputs | hi inputs | 16
+// bytes of pad] per row (signed: the slab's 2 * slab contiguous inputs,
+// swizzled, then the pad).
 template <int NT, Form F>
-__global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT == 1 ? 1 : 2)
+__global__ void __launch_bounds__(NT == 1 ? (F == Form::Gated ? kAGatedMaxWarps : kAMaxWarps) * 32
+                                          : kAWarps * 32,
+                                  NT == 1 || F == Form::Gated ? 1 : 2)
     q4_stacked_mma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-                          const float* __restrict__ scale, float* __restrict__ y, int B,
-                          int O, int half, int splits, int slab) {
+                          const float* __restrict__ scale, void* __restrict__ y, int B, int O,
+                          int half, int splits, int slab, int slab_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool Gated = F == Form::Gated, Signed = F == Form::Signed;
+  constexpr bool Folded = F == Form::Folded || Gated;  // the folded arithmetic
+  constexpr int kMats = Gated ? 2 : 1;  // M operands a warp reads: gate and up, or one
+  if constexpr (F == Form::Folded) {
+    const size_t z = blockIdx.z;
+    x += z * B * 2 * half;
+    q += z * O * half;
+    scale += z * 2 * O;
+    y = static_cast<float*>(y) + z * B * O;
+  }
   const int warps = blockDim.x >> 5;
   const int tiles_per_block = warps / splits;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -273,29 +324,57 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
   const int n_slabs = (n_chunks + slab_chunks - 1) / slab_chunks;
   const int row_bytes = 4 * slab + 16;
   const uint32_t x_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  constexpr bool Folded = F == Form::Folded, Signed = F == Form::Signed;
   const uint32_t swz = (t4 & 2) * 16;  // signed x: lanes t = 2, 3 read units ^ 2
 
   const int o_lo = tile * 16 + g, o_hi = o_lo + 8;
   const bool tile_ok = tile * 16 < O;
   const bool ok_lo = o_lo < O, ok_hi = o_hi < O;
-  // Scale of (row, nibble half): [O, 2] rounded, [2, O] folded; signed has
-  // one a row (its _lo), [1, O].
-  auto scale_of = [&](int o, int part) {
+  // Gated: the tile's slab and its first column there (bi % 16 == 0, so a
+  // tile never straddles two slabs).
+  const int slab_j = Gated ? tile * 16 / slab_rows : 0;
+  const int col0 = Gated ? tile * 16 - slab_j * slab_rows : 0;
+  // Weight row of output o for M operand mt.
+  auto row_of = [&](int o, int mt) {
+    if constexpr (Gated) return (2 * slab_j + mt) * slab_rows + o - tile * 16 + col0;
+    return o;
+  };
+  // Scale of (output, M operand, nibble half): [O, 2] rounded, [2, O] folded,
+  // [n, 2, 2bi] gated; signed has one a row (its _lo), [1, O].
+  auto scale_of = [&](int o, int mt, int part) {
     if constexpr (Signed) return part == 0 ? scale[o] : 0.f;
+    if constexpr (Gated)
+      return scale[(2 * slab_j + part) * 2 * slab_rows + mt * slab_rows + o - tile * 16 + col0];
     return Folded ? scale[part * O + o] : scale[2 * o + part];
   };
-  const float s0_lo = ok_lo ? scale_of(o_lo, 0) : 0.f, s0_hi = ok_lo ? scale_of(o_lo, 1) : 0.f;
-  const float s1_lo = ok_hi ? scale_of(o_hi, 0) : 0.f, s1_hi = ok_hi ? scale_of(o_hi, 1) : 0.f;
-  const uint8_t* q_lo = q + static_cast<size_t>(ok_lo ? o_lo : 0) * half + 16 * t4;
-  const uint8_t* q_hi = q + static_cast<size_t>(ok_hi ? o_hi : 0) * half + 16 * t4;
+  float s0_lo[kMats], s0_hi[kMats], s1_lo[kMats], s1_hi[kMats];
+  const uint8_t* q_lo[kMats];
+  const uint8_t* q_hi[kMats];
+#pragma unroll
+  for (int mt = 0; mt < kMats; ++mt) {
+    s0_lo[mt] = ok_lo ? scale_of(o_lo, mt, 0) : 0.f;
+    s0_hi[mt] = ok_lo ? scale_of(o_lo, mt, 1) : 0.f;
+    s1_lo[mt] = ok_hi ? scale_of(o_hi, mt, 0) : 0.f;
+    s1_hi[mt] = ok_hi ? scale_of(o_hi, mt, 1) : 0.f;
+    q_lo[mt] = q + static_cast<size_t>(ok_lo ? row_of(o_lo, mt) : 0) * half + 16 * t4;
+    q_hi[mt] = q + static_cast<size_t>(ok_hi ? row_of(o_hi, mt) : 0) * half + 16 * t4;
+  }
 
-  // Chunk c's 16 bytes of rows g and g + 8 (zeros past the row or past O).
-  auto load_w = [&](int c, uint4& w0, uint4& w1) {
-    w0 = w1 = make_uint4(0u, 0u, 0u, 0u);
+  // Chunk c's 16 bytes of rows g and g + 8 of each M operand (zeros past the
+  // row or past O): w0[mt] row g, w1[mt] row g + 8.
+  auto load_w = [&](int c, uint4 (&w0)[kMats], uint4 (&w1)[kMats]) {
+#pragma unroll
+    for (int mt = 0; mt < kMats; ++mt) w0[mt] = w1[mt] = make_uint4(0u, 0u, 0u, 0u);
     if (c < n_chunks && c * kChunk + 16 * t4 < half) {
-      if (ok_lo) w0 = ldg_stream(q_lo + c * kChunk);
-      if (ok_hi) w1 = ldg_stream(q_hi + c * kChunk);
+#pragma unroll
+      for (int mt = 0; mt < kMats; ++mt) {
+        if constexpr (Gated) {  // the whole 256-byte block around each load, as q8_matmul.cu
+          if (ok_lo) w0[mt] = ldg_stream256(q_lo[mt] + c * kChunk);
+          if (ok_hi) w1[mt] = ldg_stream256(q_hi[mt] + c * kChunk);
+        } else {
+          if (ok_lo) w0[mt] = ldg_stream(q_lo[mt] + c * kChunk);
+          if (ok_hi) w1[mt] = ldg_stream(q_hi[mt] + c * kChunk);
+        }
+      }
     }
   };
 
@@ -304,15 +383,19 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
   // NT == 1, which add it to acc at the end, and folded, which keeps the low
   // and high nibbles' sums apart until the epilogue).
   constexpr int kHiTiles = Folded ? NT : 1;
-  float acc[NT][4], acc_hi[kHiTiles][4];
+  float acc[kMats][NT][4], acc_hi[kMats][kHiTiles][4];
 #pragma unroll
-  for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int mt = 0; mt < kMats; ++mt) {
 #pragma unroll
-  for (int nt = 0; nt < kHiTiles; ++nt)
-    acc_hi[nt][0] = acc_hi[nt][1] = acc_hi[nt][2] = acc_hi[nt][3] = 0.f;
+    for (int nt = 0; nt < NT; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < kHiTiles; ++nt)
+      acc_hi[mt][nt][0] = acc_hi[mt][nt][1] = acc_hi[mt][nt][2] = acc_hi[mt][nt][3] = 0.f;
+  }
 
   int c = split;
-  uint4 cur0, cur1, nxt0, nxt1;
+  uint4 cur0[kMats], cur1[kMats], nxt0[kMats], nxt1[kMats];
   load_w(c, cur0, cur1);
   load_w(c + splits, nxt0, nxt1);
   for (int sl = 0; sl < n_slabs; ++sl) {
@@ -336,14 +419,12 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
     __syncthreads();
     if (!tile_ok) continue;
     for (; c < c_end; c += splits) {
-      uint4 fut0, fut1;
+      uint4 fut0[kMats], fut1[kMats];
       load_w(c + 2 * splits, fut0, fut1);
       // Shared address of this lane's 16 low-half inputs (signed: its 32
       // inputs) in batch row 0.
       const uint32_t x_at = x_s + ((c - c_begin) * kChunk + 16 * t4) * (Signed ? 4 : 2);
       const bool lane_ok = c * kChunk + 16 * t4 < half;
-      const uint32_t r0[4] = {cur0.x, cur0.y, cur0.z, cur0.w};
-      const uint32_t r1[4] = {cur1.x, cur1.y, cur1.z, cur1.w};
       if constexpr (NT == 1) {
         // One n-tile: x's fragments first, then word by word the dequant
         // and its two products, low nibbles into acc, high into acc_hi, so
@@ -351,45 +432,62 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
         uint32_t xl[8], xh[8];
         x_frags<F>(x_at + g * row_bytes, slab, swz, lane_ok && g < nb, xl, xh);
 #pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          uint32_t a_lo[4], a_hi[4];
-          dequant_word<F>(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a_lo, a_hi);
-          mma_bf16(acc[0], a_lo, xl[2 * m], xl[2 * m + 1]);
-          mma_bf16(acc_hi[0], a_hi, xh[2 * m], xh[2 * m + 1]);
-        }
-      } else {
-        uint32_t a[8][4];
-#pragma unroll
         for (int m = 0; m < 4; ++m)
-          dequant_word<F>(r0[m], r1[m], s0_lo, s0_hi, s1_lo, s1_hi, a[m], a[m + 4]);
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int r = nt * 8 + g;
-          uint32_t xl[8], xh[8];
-          x_frags<F>(x_at + r * row_bytes, slab, swz, lane_ok && r < nb, xl, xh);
+          for (int mt = 0; mt < kMats; ++mt) {
+            const uint32_t r0[4] = {cur0[mt].x, cur0[mt].y, cur0[mt].z, cur0[mt].w};
+            const uint32_t r1[4] = {cur1[mt].x, cur1[mt].y, cur1[mt].z, cur1[mt].w};
+            uint32_t a_lo[4], a_hi[4];
+            dequant_word<F>(r0[m], r1[m], s0_lo[mt], s0_hi[mt], s1_lo[mt], s1_hi[mt], a_lo,
+                            a_hi);
+            mma_bf16(acc[mt][0], a_lo, xl[2 * m], xl[2 * m + 1]);
+            mma_bf16(acc_hi[mt][0], a_hi, xh[2 * m], xh[2 * m + 1]);
+          }
+      } else {
+        // Gated: one operand at a time (its dequantized words, then every
+        // n-tile's products), which rereads x's fragments but keeps half
+        // the registers.
 #pragma unroll
-          for (int m = 0; m < 4; ++m) {
-            mma_bf16(acc[nt], a[m], xl[2 * m], xl[2 * m + 1]);
-            if constexpr (Folded)
-              mma_bf16(acc_hi[nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
-            else
-              mma_bf16(acc[nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
+        for (int mt = 0; mt < kMats; ++mt) {
+          const uint32_t r0[4] = {cur0[mt].x, cur0[mt].y, cur0[mt].z, cur0[mt].w};
+          const uint32_t r1[4] = {cur1[mt].x, cur1[mt].y, cur1[mt].z, cur1[mt].w};
+          uint32_t a[8][4];
+#pragma unroll
+          for (int m = 0; m < 4; ++m)
+            dequant_word<F>(r0[m], r1[m], s0_lo[mt], s0_hi[mt], s1_lo[mt], s1_hi[mt], a[m],
+                            a[m + 4]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int r = nt * 8 + g;
+            uint32_t xl[8], xh[8];
+            x_frags<F>(x_at + r * row_bytes, slab, swz, lane_ok && r < nb, xl, xh);
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              mma_bf16(acc[mt][nt], a[m], xl[2 * m], xl[2 * m + 1]);
+              if constexpr (Folded)
+                mma_bf16(acc_hi[mt][nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
+              else
+                mma_bf16(acc[mt][nt], a[m + 4], xh[2 * m], xh[2 * m + 1]);
+            }
           }
         }
       }
-      cur0 = nxt0;
-      cur1 = nxt1;
-      nxt0 = fut0;
-      nxt1 = fut1;
+#pragma unroll
+      for (int mt = 0; mt < kMats; ++mt) {
+        cur0[mt] = nxt0[mt];
+        cur1[mt] = nxt1[mt];
+        nxt0[mt] = fut0[mt];
+        nxt1[mt] = fut1[mt];
+      }
     }
   }
 
   if constexpr (NT == 1 && !Folded) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[0][e] += acc_hi[0][e];
+    for (int e = 0; e < 4; ++e) acc[0][0][e] += acc_hi[0][0][e];
   }
   // The K splits' partial sums, added in warp order (folded: each of the
-  // two sums on its own).
+  // two sums on its own; gated: each operand's apart).
   constexpr int kSums = Folded ? 2 : 1;
   if (splits > 1) {
     float* red = reinterpret_cast<float*>(smem);
@@ -397,55 +495,96 @@ __global__ void __launch_bounds__(NT == 1 ? kAMaxWarps * 32 : kAWarps * 32, NT =
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        red[((threadIdx.x * NT + nt) * kSums) * 4 + e] = acc[nt][e];
-        if constexpr (Folded) red[((threadIdx.x * NT + nt) * kSums + 1) * 4 + e] = acc_hi[nt][e];
-      }
+      for (int mt = 0; mt < kMats; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int at = ((threadIdx.x * NT + nt) * kMats + mt) * kSums;
+          red[at * 4 + e] = acc[mt][nt][e];
+          if constexpr (Folded) red[(at + 1) * 4 + e] = acc_hi[mt][nt][e];
+        }
     __syncthreads();
     if (split != 0) return;
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float sum = 0.f, sum_hi = 0.f;
-        for (int sp = 0; sp < splits; ++sp) {
-          const int at = (((sp * tiles_per_block + warp) * 32 + lane) * NT + nt) * kSums;
-          sum += red[at * 4 + e];
-          if constexpr (Folded) sum_hi += red[(at + 1) * 4 + e];
+      for (int mt = 0; mt < kMats; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sum = 0.f, sum_hi = 0.f;
+          for (int sp = 0; sp < splits; ++sp) {
+            const int at =
+                ((((sp * tiles_per_block + warp) * 32 + lane) * NT + nt) * kMats + mt) * kSums;
+            sum += red[at * 4 + e];
+            if constexpr (Folded) sum_hi += red[(at + 1) * 4 + e];
+          }
+          acc[mt][nt][e] = sum;
+          if constexpr (Folded) acc_hi[mt][nt][e] = sum_hi;
         }
-        acc[nt][e] = sum;
-        if constexpr (Folded) acc_hi[nt][e] = sum_hi;
-      }
   }
   if (!tile_ok) return;
-  // acc[nt]: (row g, batch 2t / 2t+1) in 0 / 1, (row g + 8, ...) in 2 / 3.
+  // acc[mt][nt]: (row g, batch 2t / 2t+1) in 0 / 1, (row g + 8, ...) in 2 / 3.
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int r = nt * 8 + 2 * t4 + e;
       if (r >= nb) continue;
-      float* yr = y + static_cast<size_t>(b0 + r) * O;
+      if constexpr (Gated) {
+        // act[j, b, c]: the slab's [B, bi] block, the layout stage 2 reads.
+        __nv_bfloat16* act = static_cast<__nv_bfloat16*>(y) +
+                             (static_cast<size_t>(slab_j) * B + b0 + r) * slab_rows + col0 + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 2 * h + e;
+          const float sl[2] = {h ? s1_lo[0] : s0_lo[0], h ? s1_lo[1] : s0_lo[1]};
+          const float sh[2] = {h ? s1_hi[0] : s0_hi[0], h ? s1_hi[1] : s0_hi[1]};
+          const float gv = __fadd_rn(__fmul_rn(acc[0][nt][i], sl[0]),
+                                     __fmul_rn(acc_hi[0][nt][i], sh[0]));
+          const float uv = __fadd_rn(__fmul_rn(acc[1][nt][i], sl[1]),
+                                     __fmul_rn(acc_hi[1][nt][i], sh[1]));
+          const float sigmoid = 1.f / (1.f + expf(-gv));
+          act[8 * h] = __float2bfloat16(gv * sigmoid * uv);
+        }
+        continue;
+      }
+      float* yr = static_cast<float*>(y) + static_cast<size_t>(b0 + r) * O;
       if constexpr (Folded) {
         if (ok_lo)
-          yr[o_lo] = __fadd_rn(__fmul_rn(acc[nt][e], s0_lo), __fmul_rn(acc_hi[nt][e], s0_hi));
+          yr[o_lo] = __fadd_rn(__fmul_rn(acc[0][nt][e], s0_lo[0]),
+                               __fmul_rn(acc_hi[0][nt][e], s0_hi[0]));
         if (ok_hi)
-          yr[o_hi] =
-              __fadd_rn(__fmul_rn(acc[nt][2 + e], s1_lo), __fmul_rn(acc_hi[nt][2 + e], s1_hi));
+          yr[o_hi] = __fadd_rn(__fmul_rn(acc[0][nt][2 + e], s1_lo[0]),
+                               __fmul_rn(acc_hi[0][nt][2 + e], s1_hi[0]));
       } else if constexpr (Signed) {
-        if (ok_lo) yr[o_lo] = __fmul_rn(acc[nt][e], s0_lo);
-        if (ok_hi) yr[o_hi] = __fmul_rn(acc[nt][2 + e], s1_lo);
+        if (ok_lo) yr[o_lo] = __fmul_rn(acc[0][nt][e], s0_lo[0]);
+        if (ok_hi) yr[o_hi] = __fmul_rn(acc[0][nt][2 + e], s1_lo[0]);
       } else {
-        if (ok_lo) yr[o_lo] = acc[nt][e];
-        if (ok_hi) yr[o_hi] = acc[nt][2 + e];
+        if (ok_lo) yr[o_lo] = acc[0][nt][e];
+        if (ok_hi) yr[o_hi] = acc[0][nt][2 + e];
       }
     }
   }
 }
 
+// H's stage 3: y[i] = ((0 + part[0][i]) + part[1][i]) + ... + part[n-1][i]
+// over `count` = B * H outputs, the slabs added in order as the TPU's
+// o_ref += d adds them.
+__global__ void slab_sum_kernel(const float* __restrict__ part, float* __restrict__ y, int n,
+                                int count) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float sum = 0.f;
+  for (int j = 0; j < n; ++j) sum += part[static_cast<size_t>(j) * count + i];
+  y[i] = sum;
+}
+
+// One launch of the matvec: `batches` matvecs of the stack (grid z, folded
+// only), `slab_rows` the gated form's slab width.
 template <int NT, Form F>
 int launch_pass(const void* x, const void* q, const void* scale, void* y, int B, int O,
-                int half, cudaStream_t stream) {
+                int half, int batches, int slab_rows, cudaStream_t stream) {
+  constexpr int kMats = F == Form::Gated ? 2 : 1;
+  constexpr int kMaxWarps = F == Form::Gated ? kAGatedMaxWarps : kAMaxWarps;
   static bool sized[64] = {false};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -464,43 +603,42 @@ int launch_pass(const void* x, const void* q, const void* scale, void* y, int B,
   const int tiles = (O + 15) / 16;
   const int sms = num_sms();
   int warps = kAWarps, splits = 1;
-  if (NT == 1 && tiles >= kAWarps * sms) {
-    // A warp a tile, whole K, in blocks of 8 to kAMaxWarps warps: the size
+  if (NT == 1 && tiles * batches >= kAWarps * sms) {
+    // A warp a tile, whole K, in blocks of 8 to kMaxWarps warps: the size
     // that puts the fewest tiles on the busiest SM (blocks go round the SMs
     // in turn), and of equals the largest, which stages x the fewest times.
     int best = 0;
-    for (int w = kAWarps; w <= kAMaxWarps; ++w) {
-      const int busiest = (((tiles + w - 1) / w + sms - 1) / sms) * w;
+    for (int w = kAWarps; w <= kMaxWarps; ++w) {
+      const int busiest = (((tiles + w - 1) / w * batches + sms - 1) / sms) * w;
       if (best == 0 || busiest <= best) best = busiest, warps = w;
     }
   } else {
     // The fewest K splits that give every SM two blocks (at most 8: a warp each).
     while (splits < kAWarps &&
-           (tiles + kAWarps / splits - 1) / (kAWarps / splits) * passes < 2 * sms)
+           (tiles + kAWarps / splits - 1) / (kAWarps / splits) * passes * batches < 2 * sms)
       splits *= 2;
   }
   const int tiles_per_block = warps / splits;
   size_t smem = static_cast<size_t>(rows) * (4 * slab + 16);
   if (splits > 1)
-    smem = std::max(smem, static_cast<size_t>(warps) * 32 * NT * 4 * sizeof(float) *
-                              (F == Form::Folded ? 2 : 1));
-  const dim3 grid((tiles + tiles_per_block - 1) / tiles_per_block, passes);
+    smem = std::max(smem, static_cast<size_t>(warps) * 32 * NT * 4 * sizeof(float) * kMats *
+                              (F == Form::Folded || F == Form::Gated ? 2 : 1));
+  const dim3 grid((tiles + tiles_per_block - 1) / tiles_per_block, passes, batches);
   q4_stacked_mma_kernel<NT, F><<<grid, warps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const float*>(scale), static_cast<float*>(y), B, O, half, splits, slab);
+      static_cast<const float*>(scale), y, B, O, half, splits, slab, slab_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Every entry: one, two or four n-tiles a block by B.
 template <Form F>
 int launch(const void* x, const void* q, const void* scale, void* y, int B, int O, int half,
-           void* stream) {
+           cudaStream_t stream, int batches = 1, int slab_rows = 0) {
   if (B < 1 || O < 1 || half < 16 || half % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B <= 8) return launch_pass<1, F>(x, q, scale, y, B, O, half, s);
-  if (B <= 16) return launch_pass<2, F>(x, q, scale, y, B, O, half, s);
-  return launch_pass<4, F>(x, q, scale, y, B, O, half, s);
+  if (B <= 8) return launch_pass<1, F>(x, q, scale, y, B, O, half, batches, slab_rows, stream);
+  if (B <= 16) return launch_pass<2, F>(x, q, scale, y, B, O, half, batches, slab_rows, stream);
+  return launch_pass<4, F>(x, q, scale, y, B, O, half, batches, slab_rows, stream);
 }
 
 }  // namespace
@@ -510,19 +648,43 @@ int launch(const void* x, const void* q, const void* scale, void* y, int B, int 
 // aligned, every array contiguous (the wrapper checks).
 extern "C" int vt_q4_matmul(const void* x, const void* q, const void* scale,
                             void* y, int B, int O, int half, void* stream) {
-  return launch<Form::Rounded>(x, q, scale, y, B, O, half, stream);
+  return launch<Form::Rounded>(x, q, scale, y, B, O, half, static_cast<cudaStream_t>(stream));
 }
 
 // The folded arithmetic; the same contract but scale [2, O] f32 (the s_lo
 // row, then the s_hi row).
 extern "C" int vt_q4_matmul_folded(const void* x, const void* q, const void* scale,
                                    void* y, int B, int O, int half, void* stream) {
-  return launch<Form::Folded>(x, q, scale, y, B, O, half, stream);
+  return launch<Form::Folded>(x, q, scale, y, B, O, half, static_cast<cudaStream_t>(stream));
 }
 
 // The signed form: q [O, half] u8 of adjacent two's-complement nibbles
 // (input 2k low, 2k + 1 high), scale [1, O] f32; otherwise the same contract.
 extern "C" int vt_i4_matmul(const void* x, const void* q, const void* scale, void* y, int B,
                             int O, int half, void* stream) {
-  return launch<Form::Signed>(x, q, scale, y, B, O, half, stream);
+  return launch<Form::Signed>(x, q, scale, y, B, O, half, static_cast<cudaStream_t>(stream));
+}
+
+// Probe kernel H, one layer: x [B, H] bf16, gq [n, 2*bi, H/2] u8, gs [n, 2,
+// 2*bi] f32, dq [n, H, bi/2] u8, ds [n, 2, H] f32 (repack_slabs' layout),
+// scratch: act [n, B, bi] bf16 then the slabs' partial outputs [n, B, H] f32
+// (n * B * (2 * bi + 4 * H) bytes), y [B, H] f32.  Every pointer 16-byte
+// aligned, every array contiguous, H % 32 == 0 and bi % 32 == 0 (the wrapper
+// checks).  Three launches on `stream`; returns the first error.
+extern "C" int vt_q4_fused_mlp(const void* x, const void* gq, const void* gs, const void* dq,
+                               const void* ds, void* scratch, void* y, int B, int H, int n,
+                               int bi, void* stream) {
+  if (B < 1 || n < 1 || H < 32 || H % 32 != 0 || bi < 32 || bi % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* act = scratch;
+  float* part = reinterpret_cast<float*>(static_cast<char*>(scratch) +
+                                         static_cast<size_t>(n) * B * bi * 2);
+  int err = launch<Form::Gated>(x, gq, gs, act, B, n * bi, H / 2, s, 1, bi);
+  if (err != 0) return err;
+  err = launch<Form::Folded>(act, dq, ds, part, B, H, bi / 2, s, n);
+  if (err != 0) return err;
+  const int count = B * H;
+  slab_sum_kernel<<<(count + 255) / 256, 256, 0, s>>>(part, static_cast<float*>(y), n, count);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -20,14 +20,14 @@ f32, f32 out.  One tensor-core matvec carries it on the card
 Int8 (``QuantizedWeight``: q [out, in] int8, scale [out] f32, per output
 row) has the TPU kernel's semantics, not the JAX CPU fallback's: x rounded
 to bf16, products of x and the exact int8 value summed in f32, and the sum
-multiplied by ``scale[o]`` afterwards.  Kernel D carries it on the card
-(``csrc/q8_matmul.cu``):
+multiplied by ``scale[o]`` afterwards.  One int8 tensor-core matvec carries
+it on the card (``csrc/q8_matmul.cu``, ``q8_mma_kernel``), behind two
+wrappers:
 
 - ``q8_matmul`` (kernel D, TPU ``_q8_matmul_kernel``): int8 vocab heads and,
   under QUANTIZATION=int8, every decoder's qkv and o projections;
-- ``fused_swiglu_mlp`` (kernel E, TPU ``_fused_mlp_kernel``,
-  ``csrc/q8_swiglu.cu``, two launches of an int8 tensor-core matvec): a
-  whole int8 decoder MLP,
+- ``fused_swiglu_mlp`` (kernel E, TPU ``_fused_mlp_kernel``, two launches
+  of the matvec, the first gated): a whole int8 decoder MLP,
   down(silu(gate(x)) * up(x)), with h rounded to bf16 before the down
   product; ``fused_mlp_applies`` is the JAX package's dispatch rule for it.
 
@@ -45,8 +45,10 @@ The int4 probe tools (``vis_tpu_torch.tools``) add three functions:
   two's-complement nibbles (``pack_int4_adjacent``), one scale per output
   row; on the card A's kernel in its signed form, the row's scale applied
   once after the f32 sum;
-- ``q4_fused_mlp_slab`` (probe kernel H, ``csrc/q4_fused_mlp.cu``): a whole
-  int4 SwiGLU MLP over the probe's per-slab layout (``repack_slabs``).
+- ``q4_fused_mlp_slab`` (probe kernel H): a whole int4 SwiGLU MLP over the
+  probe's per-slab layout (``repack_slabs``); on the card A's kernel in a
+  gated folded form (act, slab-major), then its folded form once per slab,
+  then an ordered sum of the slabs' partial outputs.
 
 Each wrapper runs its plain PyTorch version for a CPU tensor and launches
 its kernel for a CUDA tensor (or raises); ``launches`` counts the kernel
@@ -579,7 +581,9 @@ def q4_fused_mlp_slab(x: torch.Tensor, gq2: torch.Tensor, gs2: torch.Tensor,
     """Probe kernel H wrapper (``_q4_fused_mlp_kernel``): the int4 SwiGLU MLP
     of layer ``idx`` over ``repack_slabs``' layout, x [B, H] -> [B, H] f32.
     Runs the plain version for CPU tensors; on the card launches the kernel
-    (two stages, one stream) or raises on what it does not take."""
+    (three launches on one stream: the gated folded matvec into act, the
+    folded matvec once per slab into the partial outputs, their ordered
+    sum) or raises on what it does not take."""
     if x.device.type == "cpu":
         return q4_fused_mlp_slab_plain(x, gq2, gs2, dq2, ds2, idx)
     from vis_tpu_torch.ops import _kernels
@@ -609,12 +613,15 @@ def q4_fused_mlp_slab(x: torch.Tensor, gq2: torch.Tensor, gs2: torch.Tensor,
     xb = x.to(torch.bfloat16).contiguous()
     if xb.data_ptr() % 16:
         xb = xb.clone()
-    act = torch.empty((batch, n * bi), dtype=torch.bfloat16, device=x.device)
+    # One scratch for both intermediates: act [n, B, bi] bf16, then the
+    # slabs' partial outputs [n, B, H] f32.
+    scratch = torch.empty((n * batch * (2 * bi + 4 * hidden),), dtype=torch.uint8,
+                          device=x.device)
     y = torch.empty((batch, hidden), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernels.library().vt_q4_fused_mlp(
             xb.data_ptr(), gq.data_ptr(), gs.data_ptr(), dq.data_ptr(), ds.data_ptr(),
-            act.data_ptr(), y.data_ptr(), batch, hidden, n, bi, _kernels.stream_of(x),
+            scratch.data_ptr(), y.data_ptr(), batch, hidden, n, bi, _kernels.stream_of(x),
         )
     _kernels.check(err, "vt_q4_fused_mlp")
     q4_fused_mlp_slab.launches += 1
