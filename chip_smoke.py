@@ -1351,6 +1351,10 @@ def _int_dot_kernels(gen, dev) -> dict:
             _miss_probe(f"P {name} B={rows}, decoded as O (n - 8)", int_dot.q4_i8_matmul(
                 x8, q[0], s[0]), int_dot.q4_i8s_matmul_plain(x8, q[0], s[0]), 0.0)
             del lo, hi, slo, shi
+    for key in ("O", "P"):
+        print(f"[probes] {key} at every timed shape: " + "; ".join(
+            f"{name} B={rows} {ms:.4f} ms, bound {limit[0]:.4f} ms ({limit[0] / ms:.0%})"
+            for (k, name, rows), (ms, _, limit) in rows_timed.items() if k == key))
     for key, lib in (("M", library_m["gate_up"]), ("N", library_n["gate_up"]),
                      ("O", None), ("P", None)):
         ms, plain_ms, limit = rows_timed[(key, "gate_up", 1)]

@@ -37,8 +37,15 @@ agree bit for bit; its cases include half a slab row that is no multiple of
 64 bytes, up to 32 rows, and down scales that differ from slab to slab.  The int8 probe's kernels: the byte sum (L) equals its plain
 version and torch.sum(dtype=int32) bit for bit, and the large cases wrap;
 M, O and P have exact int32 sums and an epilogue of rounded (never fused)
-operations, so they equal their plain versions bit for bit, and O with its
-x halves swapped, or on P's reading of the bytes, must not.  The outputs of
+operations, so they equal their plain versions bit for bit (O and P twice),
+and O with its x halves swapped, or on P's reading of the bytes, must not.
+O and P run kernel A's matvec in an integer form on mma.sync.m16n8k32 s8:
+their cases take the probe's gate_up at B = 1 (a warp a tile), its down at
+B = 1 and 8 (the K split), every batch of 1 to 8 rows and 16, 32 and 128
+(two and four n-tiles, four passes), 1000 rows (no multiple of 16), half
+rows that are multiples of 16 but not of 64 (a partial last chunk), and
+extremes: x all +-127 and bytes 0x00, 0xFF, 0x88 and 0x77, where each
+nibble reading reaches -8 and 7 and the sums their largest magnitude.  The outputs of
 kernels A and B are pinned by SHA-256 digests of their bytes on seeded
 inputs, measured on an NVIDIA H100 80GB HBM3.  Both were measured anew
 when they moved to the tensor cores (A first, then B onto A's kernel):
@@ -160,12 +167,27 @@ L_CASES = {  # name: (rows, width, fill byte or -1 for random bytes)
     "gate_up-37888x1792": (37888, 1792, -1),  # the probe's int4 gate_up, wraps
     "wrap-4096x2304": (4096, 2304, 255),
 }
-INT_CASES = {  # name: (rows, out, in); M: q [out, in] int8, O and P: q [out, in/2] u8
-    "1x200x512": (1, 200, 512),
-    "3x1000x256": (3, 1000, 256),
-    "8x72x4128": (8, 72, 4128),      # 3 x stages of M, a 16-column last stage of O / P
-    "9x40x96": (9, 40, 96),          # two batch passes
-    "128x64x1024": (128, 64, 1024),
+# name: (rows, out, in, extremes); M: q [out, in] int8, O and P: q [out, in/2]
+# u8.  extremes: x all +-127 by row and the weight bytes 0x00, 0xFF, 0x88 and
+# 0x77 by row (both nibble readings reach -8 and 7, and the sums their
+# largest magnitude), else random bytes.
+INT_CASES = {
+    "1x200x512": (1, 200, 512, False),
+    "3x1000x256": (3, 1000, 256, False),
+    "8x72x4128": (8, 72, 4128, False),   # 3 x stages of M; O / P: a partial last chunk
+    "9x40x96": (9, 40, 96, False),       # two batch passes
+    "128x64x1024": (128, 64, 1024, False),
+    "8x1000x256": (8, 1000, 256, False),
+    # The probe's gate_up at B = 1 (a warp a tile) and down at B = 1 and 8
+    # (K split across a block's warps).
+    "1x37888x3584": (1, 37888, 3584, False),
+    "1x3584x18944": (1, 3584, 18944, False),
+    "8x3584x18944": (8, 3584, 18944, False),
+    "8x3584x18944-extremes": (8, 3584, 18944, True),
+    # Every batch of 1 to 8 rows, two and four n-tiles, four passes; 1000
+    # rows (no multiple of 16) and half 784 (a partial last chunk).
+    **{f"{rows}x1000x1568": (rows, 1000, 1568, False)
+       for rows in (1, 2, 3, 4, 5, 6, 7, 8, 16, 32, 128)},
 }
 AB_CASES = {  # name: (rows, out, in, stacked layers or 0); B single, A stacked
     "B-3x4096x3584": (3, 4096, 3584, 0),
@@ -287,8 +309,8 @@ def test_byte_sum_kernel_matches_plain(card, name):
 
 @pytest.mark.parametrize("name", list(INT_CASES))
 def test_int8_activation_kernels_match_plain_bit_for_bit(card, name):
-    m, o, p, o_swapped, o_as_p = card[f"int/{name}"].tolist()
-    assert (m, o, p) == (1.0, 1.0, 1.0)
+    m, o, o_again, p, p_again, o_swapped, o_as_p = card[f"int/{name}"].tolist()
+    assert (m, o, o_again, p, p_again) == (1.0, 1.0, 1.0, 1.0, 1.0)
     assert o_swapped == 0.0 and o_as_p == 0.0
 
 
@@ -323,6 +345,6 @@ def test_each_case_counted_one_launch(card):
         3 * len(H_CASES),   # the checked run, the swapped-slab run, the repeat
         len(L_CASES),
         len(INT_CASES),
-        3 * len(INT_CASES),  # the checked run, x halves swapped, P's reading
-        len(INT_CASES),
+        3 * len(INT_CASES),  # the checked run, the repeat, x halves swapped
+        2 * len(INT_CASES),  # the checked run, the repeat
     ]

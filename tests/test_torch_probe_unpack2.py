@@ -205,6 +205,31 @@ def test_offset_and_signed_nibbles_are_two_functions(sides, w, rows):
     assert np.abs(port[f"O/{w}/{rows}"] - port[f"P/{w}/{rows}"]).max() > 0.0
 
 
+@pytest.mark.parametrize("kernel", ["O", "P"])
+def test_card_nibble_expansion_matches_probe_reading(kernel):
+    """The card kernel (csrc/int_dot.cu nibbles_s8) turns a word of four
+    packed bytes into four int8 at once: ((w >> shift) & 0x0F0F0F0F ^ flip)
+    + 0x78787878, then ^ 0x80808080, flip 0 for O and 0x08080808 for P.  On
+    every byte value it must give the probe kernels' readings, written as
+    their Pallas bodies write them (_q4i8_kernel, _q4i8s_kernel)."""
+    words = np.arange(256, dtype=np.uint8).view("<u4")  # byte k of word i: 4i + k
+    flip = {"O": 0, "P": 0x08080808}[kernel]
+
+    def expand(shift):
+        out = ((((words >> shift) & 0x0F0F0F0F) ^ flip) + 0x78787878) ^ 0x80808080
+        return out.astype("<u4").view(np.int8)
+
+    q = jnp.arange(256, dtype=jnp.int32).astype(jnp.uint8)
+    if kernel == "O":
+        b = q.astype(jnp.int32)
+        want_lo, want_hi = (b & 15) - 8, (b >> 4) - 8
+    else:
+        b8 = jax.lax.bitcast_convert_type(q, jnp.int8)
+        want_lo, want_hi = (b8 << 4) >> 4, b8 >> 4
+    np.testing.assert_array_equal(expand(0), np.asarray(want_lo, dtype=np.int8))
+    np.testing.assert_array_equal(expand(4), np.asarray(want_hi, dtype=np.int8))
+
+
 @pytest.mark.parametrize("rows", ROWS)
 @pytest.mark.parametrize("w", WEIGHTS)
 def test_mixed_dot_runs_on_kernel_d(sides, w, rows):

@@ -733,9 +733,12 @@ def case_cuda_kernels(inp):
 def _int_dot_cases(inp, gen, out) -> None:
     """The int8 probe's kernels (L, M, O, P) against their plain versions on
     the card: L's value, the library's int32 sum and whether the unwrapped
-    sum differs; for M, O and P whether each output is bit-equal, then
-    whether O with its x halves swapped, and O on P's reading, are equal to
-    the plain O and P (they must not be)."""
+    sum differs; for M, O (twice) and P (twice) whether each output is
+    bit-equal, then whether O with its x halves swapped, and O on P's
+    reading, are equal to the plain O and P (they must not be).  An
+    extremes case takes x rows all +127, all -127 or +-127 at random, and
+    weight rows of one byte 0x00, 0xFF, 0x88 or 0x77, or of those four at
+    random."""
     from vis_tpu_torch.ops import int_dot
 
     dev = gen.device
@@ -747,24 +750,39 @@ def _int_dot_cases(inp, gen, out) -> None:
             float(torch.equal(got, int_dot.u8_sum_plain(q))),
             float(got.item() == torch.sum(q, dtype=torch.int32).item()),
             float(got.item() != q.sum(dtype=torch.int64).item())])
-    for name, (rows, out_dim, in_dim) in json.loads(str(inp["int_cases"])).items():
+    for name, (rows, out_dim, in_dim, extremes) in json.loads(str(inp["int_cases"])).items():
         half = in_dim // 2
-        x8 = torch.randint(-127, 128, (rows, in_dim), generator=gen, device=dev, dtype=torch.int8)
-        q8 = torch.randint(-128, 128, (out_dim, in_dim), generator=gen, device=dev,
-                           dtype=torch.int8)
+        if extremes:
+            sign = torch.randint(0, 2, (rows, in_dim), generator=gen, device=dev) * 2 - 1
+            sign[0::3], sign[1::3] = 1, -1
+            x8 = (127 * sign).to(torch.int8)
+            ends = torch.tensor([0x00, 0xFF, 0x88, 0x77], dtype=torch.uint8, device=dev)
+            kind = torch.arange(out_dim, device=dev)[:, None] % 5  # 4: random bytes
+            pick = torch.where(kind < 4, kind, torch.randint(0, 4, (out_dim, in_dim),
+                                                             generator=gen, device=dev))
+            q8 = ends[pick].view(torch.int8)
+            q4 = ends[pick[:, :half]].contiguous()
+        else:
+            x8 = torch.randint(-127, 128, (rows, in_dim), generator=gen, device=dev,
+                               dtype=torch.int8)
+            q8 = torch.randint(-128, 128, (out_dim, in_dim), generator=gen, device=dev,
+                               dtype=torch.int8)
+            q4 = torch.randint(0, 256, (out_dim, half), generator=gen, device=dev,
+                               dtype=torch.uint8)
         s1 = torch.rand((1, out_dim), generator=gen, device=dev) * 0.01
-        q4 = torch.randint(0, 256, (out_dim, half), generator=gen, device=dev, dtype=torch.uint8)
         s2 = torch.rand((2, out_dim), generator=gen, device=dev) * 0.01
         want_o = int_dot.q4_i8_matmul_plain(x8, q4, s2)
+        want_p = int_dot.q4_i8s_matmul_plain(x8, q4, s2)
+        got_o = int_dot.q4_i8_matmul(x8, q4, s2)
         swapped = torch.cat([x8[:, half:], x8[:, :half]], dim=1)
         out[f"int/{name}"] = np.array([
             float(torch.equal(int_dot.i8_matmul(x8, q8, s1), int_dot.i8_matmul_plain(x8, q8, s1))),
+            float(torch.equal(got_o, want_o)),
             float(torch.equal(int_dot.q4_i8_matmul(x8, q4, s2), want_o)),
-            float(torch.equal(int_dot.q4_i8s_matmul(x8, q4, s2),
-                              int_dot.q4_i8s_matmul_plain(x8, q4, s2))),
+            float(torch.equal(int_dot.q4_i8s_matmul(x8, q4, s2), want_p)),
+            float(torch.equal(int_dot.q4_i8s_matmul(x8, q4, s2), want_p)),
             float(torch.equal(int_dot.q4_i8_matmul(swapped, q4, s2), want_o)),
-            float(torch.equal(int_dot.q4_i8_matmul(x8, q4, s2),
-                              int_dot.q4_i8s_matmul_plain(x8, q4, s2)))])
+            float(torch.equal(got_o, want_p))])
 
 
 def _ab_bits(qz, cases):

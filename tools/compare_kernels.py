@@ -1,7 +1,7 @@
-"""Time kernels D, E and H of another checkout beside this checkout's, on one
-NVIDIA GPU, in one process.
+"""Time kernels D, E, H, O and P of another checkout beside this checkout's,
+on one NVIDIA GPU, in one process.
 
-    python3 tools/compare_kernels.py [--kernel D,E,H] BEFORE_CSRC [--rounds 2]
+    python3 tools/compare_kernels.py [--kernel D,E,H,O,P] BEFORE_CSRC [--rounds 2]
 
 BEFORE_CSRC is a directory holding another checkout's ``vis_tpu_torch/csrc``
 sources, for instance the parent commit's:
@@ -11,7 +11,8 @@ sources, for instance the parent commit's:
 Its ``.cu`` files are compiled by nvcc for sm_90a (one nvcc each, all at
 once, the port's flags) into one shared library under
 ``build/compare_kernels/``, and its ``vt_q8_matmul`` (D), ``vt_q8_swiglu``
-(E) and ``vt_q4_fused_mlp`` (H) entries are bound with ctypes (the same C
+(E), ``vt_q4_fused_mlp`` (H), ``vt_q4_i8_matmul`` (O) and
+``vt_q4_i8s_matmul`` (P) entries are bound with ctypes (the same C
 signatures as this checkout's).  The shapes are chip_smoke.py's:
 
 - D at every int8 qkv and o of the main path (Qwen2.5-VL-7B at B = 1 and 8,
@@ -22,7 +23,11 @@ signatures as this checkout's).  The shapes are chip_smoke.py's:
 - E at both models' MLP (``MLP8``), held to 2^-7 * max|y|;
 - H at the int4 probe's layer (16 slabs of 1184, hidden 3584, B = 1), two
   layers of the repack, held to 2^-12 * max_o sum_i |act_i w_oi| + 1e-4 *
-  max|y| and bit-equal across two runs.
+  max|y| and bit-equal across two runs;
+- O and P at the int8 probe's int4 gate_up [37888, 3584] and down [3584,
+  18944], B = 1 and 8 (int8 x from quant_act), walking 3 layers, each
+  side equal to the plain version (max|err| 0) and bit-equal across two
+  runs.
 
 Both sides are timed as chip_smoke.py times a kernel: a CUDA graph of a run
 of launches walking the stack, so that each launch reads its weights from
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -48,12 +54,13 @@ sys.path.insert(0, str(REPO))
 sys.modules["jax"] = None
 sys.modules["vis_tpu"] = None
 BUILD = REPO / "build" / "compare_kernels"
-ENTRIES = {"D": "vt_q8_matmul", "E": "vt_q8_swiglu", "H": "vt_q4_fused_mlp"}
+ENTRIES = {"D": "vt_q8_matmul", "E": "vt_q8_swiglu", "H": "vt_q4_fused_mlp",
+           "O": "vt_q4_i8_matmul", "P": "vt_q4_i8s_matmul"}
 
 
 def build_before(csrc: Path) -> ctypes.CDLL:
-    """The other checkout's kernels as one library, with D's, E's and H's
-    entries bound."""
+    """The other checkout's kernels as one library, with the entries of
+    ``ENTRIES`` bound."""
     from vis_tpu_torch.ops import _kernels
 
     BUILD.mkdir(parents=True, exist_ok=True)
@@ -125,6 +132,19 @@ def before_h(lib, x, gq, gs, dq, ds):
                               ds.data_ptr(), scratch.data_ptr(), y.data_ptr(), batch, hidden,
                               n, bi, _kernels.stream_of(x))
     _kernels.check(err, "vt_q4_fused_mlp (before)")
+    return y
+
+
+def before_int(lib, entry, x, q, scale):
+    """The other checkout's O or P (``entry``), launched as its wrapper does."""
+    import torch
+
+    from vis_tpu_torch.ops import _kernels
+
+    y = torch.empty((x.shape[0], q.shape[0]), dtype=torch.float32, device=x.device)
+    err = getattr(lib, entry)(x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
+                              x.shape[0], q.shape[0], q.shape[1], _kernels.stream_of(x))
+    _kernels.check(err, f"{entry} (before)")
     return y
 
 
@@ -276,11 +296,41 @@ def compare_h(lib, gen, dev, rounds: int, medians: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def compare_int(kernel: str, lib, gen, dev, rounds: int, medians: dict) -> None:
+    """O or P (``kernel``) at the int8 probe's int4 gate_up and down."""
+    import torch
+
+    import chip_smoke as cs
+    from vis_tpu_torch.ops import int_dot
+
+    fn, plain = {"O": (int_dot.q4_i8_matmul, int_dot.q4_i8_matmul_plain),
+                 "P": (int_dot.q4_i8s_matmul, int_dot.q4_i8s_matmul_plain)}[kernel]
+    hidden, inter = cs.PROBE_MLP
+    walk = 3
+    for name, (out, inn) in {"gate_up": (2 * inter, hidden), "down": (hidden, inter)}.items():
+        q = torch.randint(0, 256, (walk, out, inn // 2), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        s = 0.01 * (1 + torch.rand((walk, 2, out), generator=gen, device=dev))
+        for rows in (1, 8):
+            x8, _ = int_dot.quant_act(
+                torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16))
+            sides = {"before": lambda i: before_int(lib, ENTRIES[kernel], x8, q[i % walk],
+                                                    s[i % walk]),
+                     "after": lambda i: fn(x8, q[i % walk], s[i % walk])}
+            label = f"{kernel} {name} [{out}, {inn // 2} B] B={rows}"
+            _hold(label, sides, plain(x8, q[0], s[0]), 0.0)
+            limit = cs.bound(q[0].numel() + 2 * out * 4 + rows * inn + rows * out * 4,
+                             2 * rows * out * inn, cs.PEAK_INT8_OPS)
+            _time(label, sides, 30, rounds, limit, medians)
+        del q, s
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("before", type=Path, help="the other checkout's csrc directory")
     parser.add_argument("--kernel", default="D,E,H",
-                        help="comma-separated kernels to compare (D, E, H)")
+                        help="comma-separated kernels to compare (D, E, H, O, P)")
     parser.add_argument("--rounds", type=int, default=2)
     args = parser.parse_args()
     kernels = [k.strip().upper() for k in args.kernel.split(",") if k.strip()]
@@ -299,7 +349,8 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(cs.SEED)
     medians = {}
-    compare = {"D": compare_d, "E": compare_e, "H": compare_h}
+    compare = {"D": compare_d, "E": compare_e, "H": compare_h,
+               "O": functools.partial(compare_int, "O"), "P": functools.partial(compare_int, "P")}
     for kernel in kernels:
         compare[kernel](lib, gen, dev, args.rounds, medians)
     print(json.dumps(medians))

@@ -601,23 +601,8 @@ int launch_pass(const void* x, const void* q, const void* scale, void* y, int B,
   const int slab =
       std::min(half_chunks, std::max(kChunk, kSlabBudget / (4 * rows) / kChunk * kChunk));
   const int tiles = (O + 15) / 16;
-  const int sms = num_sms();
-  int warps = kAWarps, splits = 1;
-  if (NT == 1 && tiles * batches >= kAWarps * sms) {
-    // A warp a tile, whole K, in blocks of 8 to kMaxWarps warps: the size
-    // that puts the fewest tiles on the busiest SM (blocks go round the SMs
-    // in turn), and of equals the largest, which stages x the fewest times.
-    int best = 0;
-    for (int w = kAWarps; w <= kMaxWarps; ++w) {
-      const int busiest = (((tiles + w - 1) / w * batches + sms - 1) / sms) * w;
-      if (best == 0 || busiest <= best) best = busiest, warps = w;
-    }
-  } else {
-    // The fewest K splits that give every SM two blocks (at most 8: a warp each).
-    while (splits < kAWarps &&
-           (tiles + kAWarps / splits - 1) / (kAWarps / splits) * passes * batches < 2 * sms)
-      splits *= 2;
-  }
+  int warps, splits;
+  block_shape(NT == 1, tiles, passes, batches, kAWarps, kMaxWarps, warps, splits);
   const int tiles_per_block = warps / splits;
   size_t smem = static_cast<size_t>(rows) * (4 * slab + 16);
   if (splits > 1)
