@@ -15,26 +15,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    there is one (scaled_dot_product_attention for C, the int4 and int8
    weight-only matmuls for A, B and D).  A runs every projection of both
    models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3), D the int8
-   head and every int8 qkv and o projection (Qwen at B = 1 and 8, Llama at
-   B = 1 and 3), E one int8 MLP layer at both models' widths; B, the
-   int4 head, runs A's kernel on a one-layer weight, must equal A on it bit
-   for bit and give exactly 0 on zero-padded rows.  A kernel's time is that of a run of
+   heads and every int8 qkv and o projection (Qwen at B = 1 and 8, Llama at
+   B = 1 and 3, Llama-3.2-11B-Vision at B = 1 and 8), E one int8 MLP layer
+   at each model's width; B, the int4 head, runs A's kernel on a one-layer
+   weight, must equal A on it bit for bit and give exactly 0 on zero-padded
+   rows, and B runs every int4 text projection of Llama-3.2-11B-Vision (B =
+   1 and 8) and its head (B = 1).  A kernel's time is that of a run of
    launches captured into a CUDA graph (``device_ms``), a plain version's
    that of a run of calls back to back (``stream_ms``);
-4. reference: the small Qwen2.5-VL profile and the small Llama text
-   profile, int4 and int8, on the card against the same engines on the CPU
-   (prefill logits, a lookahead window, one batched paged decode chunk);
+4. reference: the small Qwen2.5-VL, Llama text and Mllama profiles, int4
+   and int8, on the card against the same engines on the CPU (prefill
+   logits, a lookahead window, one batched paged decode chunk; the Mllama
+   tower's features);
 5. int4 slice: vis_tpu_torch.orchestration.graph.run_inspection on
-   assets/sample.jpg, three requests, with the Qwen2.5-VL-7B inspector and
-   the Llama-3.1-8B explainer on the port (full width and depth, random
-   int4 weights from a fixed seed; the explainer's report bundle through
-   the paged continuous-batching scheduler) and the auditor on the mock
-   provider.  Kernels A-D must have launched during these requests, and
+   assets/sample.jpg, three requests, with the Qwen2.5-VL-7B inspector, the
+   Llama-3.2-11B-Vision auditor and the Llama-3.1-8B explainer on the port
+   (full width and depth, random int4 weights from a fixed seed; the
+   explainer's report bundle through the paged continuous-batching
+   scheduler).  Before them one auditor request runs alone, and its
+   kernel B launches must equal what its decode passes and prefill bucket
+   predict.  Kernels A-D must have launched during the three requests,
    every request must show the explainer's three decodes as model text
-   from the scheduler;
-6. int8 slice: the same three requests under QUANTIZATION=int8 (int8
-   layers, vocab tables and vision projections).  Kernels C, D and E must
-   have launched;
+   from the scheduler (decision support for a fixed defect list when the
+   consensus holds none, while the pipeline keeps its "No Action
+   Required") and both VLMs' answers with the schema's keys;
+6. int8 slice: the same under QUANTIZATION=int8 (int8 layers, vocab tables
+   and vision projections; the auditor alone launches D and E as its
+   passes predict).  Kernels C, D and E must have launched;
 7. probes: the int4 probe tools' kernels (F, G, H, I, J, K, Q) against
    their plain versions at the probes' full shapes (7B MLP stack, int4
    head), with the tolerance stated, timed beside their bound and PyTorch's
@@ -82,8 +89,7 @@ DEVICE = "cuda:0"
 SAMPLE = REPO / "assets" / "sample.jpg"
 
 # The serving profile of bench.py (copied: importing bench.py rewrites the
-# environment), with the inspector and the explainer on the port and the
-# auditor mocked.
+# environment), with all three models on the port.
 PROFILE = {
     "TORCH_DEVICE": DEVICE,
     "DEV_PROFILE": "target",
@@ -92,7 +98,7 @@ PROFILE = {
     "EXPLAINER_VOCAB_QUANTIZATION": "int8",
     "CONSTRAINED_JSON": "true",
     "VLM_INSPECTOR_PROVIDER": "cuda",
-    "VLM_AUDITOR_PROVIDER": "mock",
+    "VLM_AUDITOR_PROVIDER": "cuda",
     "EXPLAINER_PROVIDER": "cuda",
     "VLM_INSPECTOR_MAX_TOKENS": "448",
     "VLM_INSPECTOR_MIN_TOKENS": "432",
@@ -146,6 +152,16 @@ LLAMA_PROJECTIONS = {
     "gate_up": (28672, 4096),
     "down": (4096, 14336),
 }
+# Llama-3.2-11B-Vision's text projections, [out, in]: every self layer's
+# qkv, o, gate_up and down (Llama-3.1-8B's shapes; a cross layer's q is
+# o's), which kernel B runs in the auditor's lookahead windows (B = 8)
+# and its int4 head (128256 rows padded to 128512) at B = 1.  B_WALK
+# separate weights are walked (more than the 50 MB L2 holds).
+MLLAMA_PROJECTIONS = LLAMA_PROJECTIONS
+MLLAMA_HEAD = (128512, 4096)
+B_WALK = 8
+# The auditor's decode tokens (VLM_AUDITOR_MIN_TOKENS, _MAX_TOKENS).
+AUDITOR_TOKENS = (288, 304)
 FLASH = dict(b=1, s=4096, h=16, d=80, length=3996)
 # The explainer's int8 vocab head: Llama-3.1-8B's 128256 rows padded to 128512.
 HEAD8 = (128512, 128256, 4096)
@@ -154,7 +170,8 @@ HEAD8 = (128512, 128256, 4096)
 D_WALK = 8
 # Kernel E's shapes: (hidden, inter, stacked layers, batch rows); Qwen's
 # decode windows run 8 rows, Llama's scheduler 3 slots.
-MLP8 = {"qwen": (3584, 18944, 28, (1, 8)), "llama": (4096, 14336, 8, (1, 3))}
+MLP8 = {"qwen": (3584, 18944, 28, (1, 8)), "llama": (4096, 14336, 8, (1, 3)),
+        "mllama": (4096, 14336, 8, (8,))}
 # The int4 probe tools: the 7B MLP stack (hidden, inter), the int4 head's
 # rows and their paddings, the fused MLP's slab rows, and the passes per timed
 # run and timed runs of each probe variant.
@@ -350,7 +367,78 @@ def _kernel_b(gen, dev) -> dict:
           f"bound {limit[0]:.4f} ms ({limit[1]})")
     library = _library_int4("head B=1", x, [(_split_values(q), scale[:, 0], scale[:, 1])],
                             tag="B")
+    del w, q, scale
+    torch.cuda.empty_cache()
+    err = max(err, _kernel_b_mllama(gen, dev))
     return dict(err=err, ms=ms, plain_ms=plain, bound=limit, library_ms=library)
+
+
+def _kernel_b_mllama(gen, dev) -> float:
+    """B at the auditor's shapes: every int4 text projection of
+    Llama-3.2-11B-Vision at B = 1 and 8, each held to its plain version
+    (1e-3 * max|y|) and timed walking B_WALK separate weights, beside its
+    bound and torch._weight_int4pack_mm on the same weights; then its head
+    at B = 1 with the last 256 rows zeroed (exactly 0 out).  Returns the
+    worst error."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.serving.engine import random_q4
+
+    worst = 0.0
+    for name, (out, inn) in MLLAMA_PROJECTIONS.items():
+        w = random_q4(gen, B_WALK, out=out, inn=inn, device=dev)
+        for rows in (1, 8):
+            x = torch.randn((rows, inn), generator=gen, device=dev).to(torch.bfloat16)
+            got = qz.q4_matmul(x, w.q[0], w.scale[0])
+            want = qz.q4_matmul_plain(x, w.q[0], w.scale[0])
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = 1e-3 * want.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"kernel B mllama {name} B={rows}: {err} > {tol}")
+            worst = max(worst, err)
+            ms = device_ms(lambda i: qz.q4_matmul(x, w.q[i % B_WALK], w.scale[i % B_WALK]),
+                           2 * B_WALK)
+            plain = stream_ms(lambda i: qz.q4_matmul_plain(
+                x, w.q[i % B_WALK], w.scale[i % B_WALK]), B_WALK)
+            weight = w.q[0].numel() + w.scale[0].numel() * 4
+            limit = bound(weight + rows * inn * 2 + rows * out * 4, 2 * rows * out * inn)
+            library = _library_int4(f"mllama {name} B={rows}", x, [
+                (_split_values(w.q[i]), w.scale[i][:, 0], w.scale[i][:, 1]) for i in range(3)],
+                calls=2 * B_WALK, tag="B")
+            print(f"[B] mllama {name:8s} [{out}, {inn}] B={rows}: max|err| {err:.3e} <= tol "
+                  f"{tol:.3e}; kernel {ms:.4f} ms ({weight / (ms * 1e-3) / 1e9:.0f} GB/s of "
+                  f"weight, {limit[0] / ms:.1%} of bound {limit[0]:.4f} ms ({limit[1]})), plain "
+                  f"{plain:.4f} ms, library {library:.4f} ms (kernel/library "
+                  f"{ms / library:.2f}x)")
+        del w
+        torch.cuda.empty_cache()
+    rows_out, inn = MLLAMA_HEAD
+    w = random_q4(gen, out=rows_out, inn=inn, device=dev)
+    w.q[-256:], w.scale[-256:] = 0, 0.0
+    x = torch.randn((1, inn), generator=gen, device=dev).to(torch.bfloat16)
+    got = qz.q4_matmul(x, w.q, w.scale)
+    want = qz.q4_matmul_plain(x, w.q, w.scale)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    tol = 1e-3 * want.abs().max().item()
+    padded = got[:, -256:].abs().max().item()
+    if not (err <= tol and padded == 0.0):
+        raise AssertionError(f"kernel B mllama head: {err} > {tol} or padded rows {padded}")
+    ms = device_ms(lambda i: qz.q4_matmul(x, w.q, w.scale), 30)
+    plain = stream_ms(lambda i: qz.q4_matmul_plain(x, w.q, w.scale), 10)
+    weight = w.q.numel() + w.scale.numel() * 4
+    limit = bound(weight + inn * 2 + rows_out * 4, 2 * rows_out * inn)
+    library = _library_int4("mllama head B=1", x, [(_split_values(w.q), w.scale[:, 0],
+                                                    w.scale[:, 1])], tag="B")
+    print(f"[B] mllama head [{rows_out}, {inn}] B=1: max|err| {err:.3e} <= tol {tol:.3e}; "
+          f"padded rows max|y| {padded} == 0; kernel {ms:.4f} ms ({weight / (ms * 1e-3) / 1e9:.0f} "
+          f"GB/s of weight, {limit[0] / ms:.1%} of bound {limit[0]:.4f} ms ({limit[1]})), plain "
+          f"{plain:.4f} ms, library {library:.4f} ms (kernel/library {ms / library:.2f}x)")
+    del w
+    torch.cuda.empty_cache()
+    return max(worst, err)
 
 
 def _kernel_c(gen, dev) -> dict:
@@ -423,10 +511,10 @@ def _kernel_c(gen, dev) -> dict:
 
 
 def _kernel_d(gen, dev) -> dict:
-    """D: the int8 vocab head at B = 1 (end of prefill) and B = 3 (batched
-    decode).  Only the order of the f32 sums differs from the plain version:
-    max|err| <= 1e-3 * max|y|, and the 256 zero-padded rows must come out
-    exactly 0."""
+    """D: the int8 vocab head at B = 1 (end of prefill), B = 3 (batched
+    decode) and B = 8 (a lookahead window).  Only the order of the f32 sums
+    differs from the plain version: max|err| <= 1e-3 * max|y|, and the 256
+    zero-padded rows must come out exactly 0."""
     import torch
 
     from vis_tpu_torch.ops import quantized as qz
@@ -434,9 +522,9 @@ def _kernel_d(gen, dev) -> dict:
 
     rows, vocab, inn = HEAD8
     w = random_q8(gen, rows, vocab, inn, device=dev)
-    worst, times = 0.0, {}
-    for batch in (1, 3):
-        x = torch.randn((batch, inn), generator=gen, device=dev).to(torch.bfloat16)
+    worst, times, xs = 0.0, {}, {}
+    for batch in (1, 3, 8):
+        x = xs[batch] = torch.randn((batch, inn), generator=gen, device=dev).to(torch.bfloat16)
         got = qz.q8_matmul(x, w.q, w.scale)
         want = qz.q8_matmul_plain(x, w.q, w.scale)
         torch.cuda.synchronize()
@@ -454,10 +542,15 @@ def _kernel_d(gen, dev) -> dict:
         print(f"[D] head B={batch}: kernel {ms:.4f} ms ({gbps:.0f} GB/s of weight), "
               f"plain {plain:.4f} ms")
         times[batch] = (ms, plain)
+    for batch in (1, 8):
+        head_bound = bound(w.q.numel() + w.scale.numel() * 4 + batch * inn * 2
+                           + batch * rows * 4, 2 * batch * rows * inn)
+        print(f"[D] head B={batch} bound {head_bound[0]:.4f} ms ({head_bound[1]}), "
+              f"{head_bound[0] / times[batch][0]:.1%} of it")
     limit = bound(w.q.numel() + w.scale.numel() * 4 + 3 * inn * 2 + 3 * rows * 4,
                   2 * 3 * rows * inn)
     print(f"[D] head B=3 bound {limit[0]:.4f} ms ({limit[1]})")
-    library = _library_int8("head B=3", x, [(w.q, w.scale)], tag="D")
+    library = _library_int8("head B=3", xs[3], [(w.q, w.scale)], tag="D")
     del w
     torch.cuda.empty_cache()
     worst = max(worst, _kernel_d_projections(gen, dev))
@@ -467,8 +560,8 @@ def _kernel_d(gen, dev) -> dict:
 
 def _kernel_d_projections(gen, dev) -> float:
     """D at every int8 decoder projection of the main path, where most of its
-    launches go: qkv and o of Qwen2.5-VL-7B at B = 1 and 8 and of
-    Llama-3.1-8B at B = 1 and 3, each held to its plain version (1e-3 *
+    launches go: qkv and o of Qwen2.5-VL-7B at B = 1 and 8, of Llama-3.1-8B
+    at B = 1 and 3 and of Llama-3.2-11B-Vision at B = 1 and 8, each held to its plain version (1e-3 *
     max|y|) and timed walking a stack of D_WALK layers, so that each launch
     reads its weight from device memory as a decode does, beside its bound
     and torch._weight_int8pack_mm on the same weights.  Returns the worst
@@ -480,7 +573,8 @@ def _kernel_d_projections(gen, dev) -> float:
 
     worst = 0.0
     for model, projections, batches in (("qwen", PROJECTIONS, (1, 8)),
-                                        ("llama", LLAMA_PROJECTIONS, (1, 3))):
+                                        ("llama", LLAMA_PROJECTIONS, (1, 3)),
+                                        ("mllama", MLLAMA_PROJECTIONS, (1, 8))):
         for name in ("qkv", "o"):
             out, inn = projections[name]
             w = random_q8_stack(gen, D_WALK, out=out, inn=inn, device=dev)
@@ -631,8 +725,77 @@ def phase_reference(quantization: str) -> dict:
     for name in ("prefill", "window"):
         worst = max(worst, _hold(f"small Qwen2.5-VL {quantization}", name, out["plain"][name],
                                  out["kernel"][name]))
-    worst = max(worst, _reference_text(quantization))
+    worst = max(worst, _reference_text(quantization), _reference_mllama(quantization))
     return {"worst_err_over_tol": worst}
+
+
+def _reference_mllama(quantization: str) -> float:
+    """The small Mllama profile (a 256-wide tower of 4 + 2 layers; 8 text
+    layers, cross layers 1 and 5; text layers and the tied vocab table int4
+    or int8) on the card against the same engine on the CPU, same weights,
+    same host tiles of the sample (4 tiles, 4128 tower tokens): the tower's
+    features, the prefill logits of a short prompt (bucket 128, so every
+    text projection runs through kernel B at int4, or D and E at int8, and
+    the head at B = 1) and one 8-token window's last logits, each held to
+    2^-5 * max|ref|.  Fails unless B (int4), or D and E (int8), launched on
+    the card."""
+    import torch
+
+    from vis_tpu_torch.models.common.layers import KVCache, causal_mask, length_mask
+    from vis_tpu_torch.models.llama.mllama import (
+        compute_cross_kv,
+        mllama_logits,
+        text_forward,
+        vision_forward,
+    )
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.ops.preprocess_mllama import preprocess_image_mllama
+    from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving.engine_mllama import MllamaEngine, build_small_mllama_engine
+
+    settings = E.ServingSettings(max_cache_tokens=1024, lookahead=8)
+    cpu = build_small_mllama_engine("reference", "cpu", SEED, quantization, quantization,
+                                    settings)
+    gpu = MllamaEngine(cpu.name, cpu.config, _to_device(cpu.params, DEVICE), cpu.tokenizer,
+                       DEVICE, settings)
+    cfg, tok = cpu.config, cpu.tokenizer
+    tiles = preprocess_image_mllama(SAMPLE)
+    ids = [tok.image_token_id] + tok.encode("Audit the part.")
+    window = tok.encode('{"object')
+    seq_len, bucket, max_len = len(ids), 128, 256
+    wrappers = ((qz.q4_matmul,) if quantization == "int4"
+                else (qz.q8_matmul, qz.fused_swiglu_mlp))
+    out = {}
+    for label, side in (("plain", cpu), ("kernel", gpu)):
+        dev = side.device
+        for fn in wrappers:
+            fn.launches = 0
+        features = vision_forward(cfg.vision, side.params, torch.from_numpy(tiles.tiles).to(dev),
+                                  tiles.aspect_ratio_id,
+                                  torch.from_numpy(tiles.tile_mask).to(dev))
+        cross_kv = compute_cross_kv(cfg, side.params, features)
+        padded = torch.zeros((1, bucket), dtype=torch.int64)
+        padded[0, :seq_len] = torch.tensor(ids)
+        cache = KVCache.create(len(cfg.self_layer_indices), 1, max_len, cfg.text.num_kv_heads,
+                               cfg.text.head_dim_, cfg.text.dtype, dev)
+        prefill = side._prefill(side._embed_tokens(padded.to(dev)),
+                                torch.arange(bucket, dtype=torch.int32, device=dev)[None],
+                                cross_kv, cache, seq_len)
+        n = len(window)
+        mask = (causal_mask(n, max_len, dev, offset=seq_len)
+                + length_mask(max_len, torch.tensor([seq_len + n], device=dev)))
+        positions = torch.arange(seq_len, seq_len + n, dtype=torch.int32, device=dev)[None]
+        hidden, _ = text_forward(cfg, side.params, side._embed_tokens(
+            torch.tensor([window], device=dev)), positions, cross_kv, cache, mask)
+        last = mllama_logits(cfg, side.params, hidden[:, -1:])[:, 0]
+        out[label] = {"features": features.float().cpu(), "prefill": prefill.cpu(),
+                      "window": last.cpu()}
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    print(f"[reference] small Mllama {quantization} kernel launches on the card: {launches}")
+    if not all(n > 0 for n in launches.values()):
+        raise AssertionError(f"small Mllama {quantization}: a kernel never launched {launches}")
+    return max(_hold(f"small Mllama {quantization}", name, out["plain"][name],
+                     out["kernel"][name]) for name in ("features", "prefill", "window"))
 
 
 def _hold(profile: str, name: str, want, got, argmax: bool = False) -> float:
@@ -776,13 +939,37 @@ class _BundleRecorder:
         return calls, requests
 
 
-def _check_bundle(i: int, calls, requests, scheduler, decision_keys) -> dict:
-    """Fail unless the explainer's three bundle calls all returned model text
-    through the scheduler (no exception, so none of the agent's fallbacks;
-    each request decoded tokens, which random weights may spend on ids the
-    byte tokenizer decodes to nothing), decision support parses with the
-    schema's keys in order, and the scheduler decoded at least one chunk
-    with >= 2 slots live."""
+# The defect list the explainer's decision support decodes for when the
+# consensus holds none (both random VLMs answer "defects": []).
+BUNDLE_DEFECTS = [{"type": "crack", "safety_impact": "MODERATE", "location": "weld seam"}]
+
+
+def _decide_always(explainer) -> None:
+    """Make every report bundle decode decision support.  With no defect
+    the agent answers "No Action Required" without a decode; then its
+    decision support is also decoded for BUNDLE_DEFECTS, in the bundle's
+    own thread (so through the scheduler, beside the narration and the
+    counterfactual, as a real defect would be), and the pipeline still gets
+    the agent's own no-defect answer."""
+    own = explainer.generate_decision_support
+
+    def decide(defects, verdict, schema_batched=False):
+        if not defects:
+            own(BUNDLE_DEFECTS, verdict, schema_batched)
+        return own(defects, verdict, schema_batched)
+
+    explainer.generate_decision_support = decide
+
+
+def _check_bundle(i: int, calls, requests, scheduler, decision_keys, state) -> list:
+    """Fail unless the explainer's three bundle calls all returned model
+    text through the scheduler (no exception, so none of the agent's
+    fallbacks; each request decoded tokens, which random weights may spend
+    on ids the byte tokenizer decodes to nothing), decision support parses
+    with the schema's keys in order, and the scheduler decoded at least one
+    chunk with >= 2 slots live.  With no defect in the consensus the state
+    must hold the agent's "No Action Required" (vis_tpu_torch/agents/
+    explainer.py); the decision decode then ran for BUNDLE_DEFECTS."""
     kinds = sorted(c["kind"] for c in calls)
     if kinds != ["counterfactual", "decision", "narration"]:
         raise AssertionError(f"request {i}: explainer calls {kinds}")
@@ -798,16 +985,76 @@ def _check_bundle(i: int, calls, requests, scheduler, decision_keys) -> dict:
     doc = json.loads(texts["decision"])
     if list(doc) != decision_keys:
         raise AssertionError(f"request {i}: decision keys {list(doc)} != {decision_keys}")
+    if (not state["consensus"]["combined_defects"]
+            and state["decision_support"]["recommendation"] != "No Action Required"):
+        raise AssertionError(f"request {i}: no defect, yet decision support "
+                             f"{state['decision_support']}")
     if scheduler.stats["max_live"] < 2:
         raise AssertionError(f"request {i}: no chunk decoded with >= 2 live slots")
     return sorted((r.max_tokens, len(r.generated)) for r in requests)
 
 
+def _check_auditor(label: str, i, result: dict, raw: str, engine, keys) -> None:
+    """The auditor's answer: not failed, the inspection schema's keys in
+    order, and a decode of AUDITOR_TOKENS[0]..AUDITOR_TOKENS[1] tokens."""
+    if result["analysis_failed"]:
+        raise AssertionError(f"{label} request {i}: auditor failed: {result['failure_reason']}")
+    doc = json.loads(raw)
+    if list(doc) != keys:
+        raise AssertionError(f"{label} request {i}: auditor keys {list(doc)} != {keys}")
+    low, high = AUDITOR_TOKENS
+    if not low <= engine.last_decode_tokens <= high:
+        raise AssertionError(f"{label} request {i}: auditor decoded {engine.last_decode_tokens} "
+                             f"tokens, not {low}..{high}")
+
+
+def _auditor_alone(label: str, auditor, recorder, wrappers: dict, keys) -> None:
+    """One auditor request with nothing else running (the counts are not
+    atomic across the dual-VLM node's two threads, and the inspector's head
+    runs on B too).  Its kernel launches must be what its decode passes and
+    prefill bucket predict: each pass (a lookahead window) runs every text
+    projection of the 40 layers and the head at B <= 8, int4 on kernel B
+    (4 a layer + 1), int8 qkv, o, cross q and the head on D (2 a layer + 1)
+    and each MLP on E (1 a layer); the prefill runs the same when its
+    bucket is at most MAX_KERNEL_ROWS rows, else only its head (B = 1).  No
+    other kernel may launch."""
+    import torch
+
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.schemas.models import InspectionContext
+
+    engine = recorder.backend.engine
+    layers = engine.config.text.num_layers
+    if isinstance(engine.params["text"]["layers"][0]["qkv_proj"], qz.QuantizedWeight4):
+        per_pass, head = {"B": 4 * layers + 1}, {"B": 1}
+    else:
+        per_pass, head = {"D": 2 * layers + 1, "E": layers}, {"D": 1, "E": 0}
+    for fn in wrappers.values():
+        fn.launches = 0
+    start = time.perf_counter()
+    result = auditor.verify(SAMPLE, InspectionContext(image_id="chip-smoke", criticality="high",
+                                                      domain="general"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    _check_auditor(label, "alone", result.model_dump(), recorder.outputs[-1], engine, keys)
+    passes, bucket = engine.last_decode_passes, engine.last_prefill_bucket
+    prefill = per_pass if bucket <= qz.MAX_KERNEL_ROWS else head
+    predicted = {k: passes * n + prefill[k] for k, n in per_pass.items()}
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"[{label}] auditor alone: wall {wall:.3f} s, {engine.last_decode_tokens} tokens in "
+          f"{passes} windows, prefill bucket {bucket}; launches {launches}, predicted "
+          f"{predicted} ({per_pass} a window + {prefill} in prefill)")
+    if any(launches[k] != predicted.get(k, 0) for k in wrappers):
+        raise AssertionError(f"{label}: the auditor's launches {launches} are not the "
+                             f"predicted {predicted}")
+
+
 def phase_slice(label: str, profile: dict, required: str) -> dict:
     """Three run_inspection requests through the port's own entry point
-    under ``profile``; fails unless every kernel in ``required`` launched
-    during them.  Returns each kernel's launches, counted from 0 just
-    before the first request."""
+    under ``profile``, after one auditor request alone (``_auditor_alone``);
+    fails unless every kernel in ``required`` launched during the three.
+    Returns each kernel's launches, counted from 0 just before the first
+    of the three."""
     import torch
 
     from vis_tpu_torch import agents
@@ -824,7 +1071,8 @@ def phase_slice(label: str, profile: dict, required: str) -> dict:
     keys = [k for k, _ in SCHEMAS["inspection"].props]
     decision_keys = [k for k, _ in SCHEMAS["decision_support"].props]
     agents.install(DEVICE, seed=SEED)
-    for name, get in (("inspector", agents.get_inspector), ("explainer", agents.get_explainer)):
+    for name, get in (("inspector", agents.get_inspector), ("auditor", agents.get_auditor),
+                      ("explainer", agents.get_explainer)):
         start = time.perf_counter()
         agent = get()
         torch.cuda.synchronize()
@@ -835,14 +1083,20 @@ def phase_slice(label: str, profile: dict, required: str) -> dict:
     recorder = _Recorder(inspector.backend)
     inspector.backend = recorder
     engine = inspector.backend.backend.engine
+    auditor = agents.get_auditor()
+    auditor_recorder = _Recorder(auditor.backend)
+    auditor.backend = auditor_recorder
+    auditor_engine = auditor_recorder.backend.engine
     scheduler = explainer.backend.engine.scheduler
     if scheduler is None:
         raise AssertionError("the explainer engine has no scheduler attached")
     bundle = _BundleRecorder(explainer.backend)
     explainer.backend = bundle
+    _decide_always(explainer)
 
     wrappers = {"A": qz.q4_matmul_stacked, "B": qz.q4_matmul, "C": fa.flash_attention,
                 "D": qz.q8_matmul, "E": qz.fused_swiglu_mlp}
+    _auditor_alone(label, auditor, auditor_recorder, wrappers, keys)
     for fn in wrappers.values():
         fn.launches = 0
     for i in range(REQUESTS):
@@ -861,17 +1115,23 @@ def phase_slice(label: str, profile: dict, required: str) -> dict:
         doc = json.loads(recorder.outputs[-1])
         if list(doc) != keys:
             raise AssertionError(f"{label} request {i}: inspector keys {list(doc)} != {keys}")
+        _check_auditor(label, i, state["auditor_result"], auditor_recorder.outputs[-1],
+                       auditor_engine, keys)
         calls, requests = bundle.take()
-        tokens = _check_bundle(i, calls, requests, scheduler, decision_keys)
-        if scheduler.stats["admitted"] - admitted != 3:
+        tokens = _check_bundle(i, calls, requests, scheduler, decision_keys, state)
+        if scheduler.stats["admitted"] - admitted != len(tokens):
             raise AssertionError(f"{label} request {i}: scheduler admitted "
-                                 f"{scheduler.stats['admitted'] - admitted}, not 3")
+                                 f"{scheduler.stats['admitted'] - admitted}, not {len(tokens)}")
         spans = {k: round(sum(v), 4) for k, v in get_timings().items()
-                 if k.startswith(("engine.", "scheduler.", "explainer"))}
+                 if k.startswith(("engine.", "mllama.", "scheduler.", "explainer"))}
         steps = scheduler.stats["steps"] - steps
         verdict = (state.get("safety_verdict") or {}).get("verdict")
-        print(f"[{label}] request {i}: wall {wall:.3f} s, spans {spans}, inspector decode "
-              f"tokens {engine.last_decode_tokens}, explainer (budget, tokens) {tokens}, "
+        defects = len(state["consensus"]["combined_defects"])
+        print(f"[{label}] request {i}: wall {wall:.3f} s, spans {spans}, {defects} defects, "
+              f"inspector decode "
+              f"tokens {engine.last_decode_tokens}, auditor decode tokens "
+              f"{auditor_engine.last_decode_tokens} in {auditor_engine.last_decode_passes} "
+              f"windows, explainer (budget, tokens) {tokens}, "
               f"scheduler steps {steps} "
               f"({1e3 * spans.get('scheduler.decode', 0.0) / max(steps, 1):.2f} ms a step), "
               f"most live slots {scheduler.stats['max_live']}, verdict {verdict}")
@@ -895,7 +1155,8 @@ def _release_engines() -> None:
     from vis_tpu_torch.serving import engine as E
 
     for eng in E._engines.values():
-        eng.detach_scheduler()
+        if hasattr(eng, "detach_scheduler"):
+            eng.detach_scheduler()
     E._engines.clear()
     agents.reset_agent_cache()
     gc.collect()

@@ -10,7 +10,8 @@ torch.
 - the constraint tables of generic JSON and of every schema at a
   1024-token byte vocabulary are byte-equal, field by field;
 - ByteTokenizer encodes and decodes alike;
-- the host preprocess gives the same patches, bit for bit;
+- the host preprocess gives the same patches, and the host Mllama tiler
+  the same tiles, aspect-ratio id and tile count, bit for bit;
 - the port's config: providers default to "cuda", configs/models.yaml's
   "tpu" reads as "cuda", and TORCH_DEVICE picks the torch device.
 """
@@ -23,6 +24,7 @@ from PIL import Image
 
 from vis_tpu.agents import reset_agent_cache
 from vis_tpu.ops.preprocess import preprocess_image
+from vis_tpu.ops.preprocess_mllama import preprocess_image_mllama
 from vis_tpu.orchestration.graph import run_inspection
 from vis_tpu.serving.constrained import json_constraint_tables
 from vis_tpu.serving.schema import SCHEMAS, schema_constraint_tables
@@ -43,6 +45,9 @@ VOCAB = 1024
 TEXTS = ["", "hello", '{"object_identified": "bolt"}', "héllo wörld ✓", "line\nbreak\t"]
 IDS = [[], [104, 105], [256, 104, 257], [200, 195, 169, 1000, 33], [0, 255, 258, 261]]
 PREPROCESS = [("clean", None), ("crack", 256), ("rust", 128)]
+# Mllama tiling: an upscale to a tile, a canvas without resample, a large
+# downscale and a portrait arrangement.
+MLLAMA_TILES = [(150, 200), (300, 500), (2000, 3000), (900, 400)]
 
 
 def _normalize(value):
@@ -94,6 +99,13 @@ def sides(tmp_path_factory):
         "preprocess": [preprocess_image(images[s], max_image_dim=m, use_native=False)
                        for s, m in PREPROCESS],
     }
+    tile_images = []
+    for i, (h, w) in enumerate(MLLAMA_TILES):
+        rng = np.random.default_rng(30 + i)
+        path = tmp / f"tiles_{h}x{w}.png"
+        Image.fromarray(rng.integers(0, 255, size=(h, w, 3), dtype=np.uint8)).save(path)
+        tile_images.append(str(path))
+    ref["preprocess_mllama"] = [preprocess_image_mllama(path) for path in tile_images]
     port_dir = tmp / "port"
     port_dir.mkdir()
     port = run_port("standalone", {
@@ -104,6 +116,7 @@ def sides(tmp_path_factory):
         "texts": np.array(json.dumps(TEXTS)),
         "ids": np.array(json.dumps(IDS)),
         "preprocess": np.array(json.dumps([(images[s], m) for s, m in PREPROCESS])),
+        "preprocess_mllama": np.array(json.dumps(tile_images)),
     }, tmp)
     return ref, port
 
@@ -147,6 +160,16 @@ def test_host_preprocess_patches_bit_equal(sides, index):
     have = port[f"preprocess{index}/patches"]
     assert have.dtype == want.patches.dtype
     assert have.tobytes() == want.patches.tobytes()
+
+
+@pytest.mark.parametrize("index", range(len(MLLAMA_TILES)))
+def test_host_mllama_tiles_bit_equal(sides, index):
+    ref, port = sides
+    want = ref["preprocess_mllama"][index]
+    assert port[f"mllama{index}/meta"].tolist() == [want.aspect_ratio_id, want.num_tiles]
+    have = port[f"mllama{index}/tiles"]
+    assert have.dtype == want.tiles.dtype and have.shape == want.tiles.shape
+    assert have.tobytes() == want.tiles.tobytes()
 
 
 def test_providers_default_to_cuda(sides):

@@ -47,3 +47,37 @@ def flatten_params(tree, prefix: str, out: dict) -> dict:
     else:
         out[prefix] = np.asarray(tree)
     return out
+
+
+# Mllama's scalar tanh gates (the cross layers', the gated tower blocks' and
+# the tile and positional embeddings').
+MLLAMA_GATES = ("gate_attn", "gate_mlp", "gate_ffn", "pos_gate", "pre_tile_gate",
+                "post_tile_gate")
+
+
+def mllama_params(config, seed: int):
+    """The JAX package's Mllama init_params with every norm, tanh gate and
+    bias drawn at random: the init's zero gates would switch the cross
+    layers and the tile embeddings off.  Projection weights keep the init's
+    scale."""
+    import jax
+    import jax.numpy as jnp
+
+    from vis_tpu.models.llama.mllama import init_params
+
+    rng = np.random.default_rng(seed)
+
+    def redraw(path, leaf):
+        name = jax.tree_util.keystr(path)
+        shape = np.shape(leaf)
+        if "bias" in name:
+            value = 0.05 * rng.standard_normal(shape)
+        elif "norm" in name or "ln_" in name:
+            value = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif getattr(path[-1], "key", None) in MLLAMA_GATES:
+            value = rng.uniform(-1.5, 1.5, shape)
+        else:
+            return leaf
+        return jnp.asarray(value, leaf.dtype)
+
+    return jax.tree_util.tree_map_with_path(redraw, init_params(config, jax.random.PRNGKey(seed)))

@@ -18,6 +18,7 @@ import sys
 sys.modules["jax"] = None  # nothing in this process may load jax
 sys.modules["vis_tpu"] = None  # nor the JAX package: the port stands alone
 
+import dataclasses
 import json
 import os
 from pathlib import Path
@@ -272,6 +273,13 @@ def case_standalone(inp):
         patches = preprocess_image(image, max_image_dim=max_dim)
         out[f"preprocess{i}/patches"] = patches.patches
         out[f"preprocess{i}/grid"] = np.array([patches.grid_t, patches.grid_h, patches.grid_w])
+
+    from vis_tpu_torch.ops.preprocess_mllama import preprocess_image_mllama
+
+    for i, image in enumerate(json.loads(str(inp["preprocess_mllama"]))):
+        tiles = preprocess_image_mllama(image)
+        out[f"mllama{i}/tiles"] = tiles.tiles
+        out[f"mllama{i}/meta"] = np.array([tiles.aspect_ratio_id, tiles.num_tiles])
     return out
 
 
@@ -1299,6 +1307,340 @@ def case_checkpoint(inp):
         out[f"unchanged/{role}"] = json.dumps(
             [built.name == plain.name, _same_params(built.params, plain.params)])
     return {k: np.array(v) for k, v in out.items()}
+
+
+def _mllama_logits(config, params, ids, cross_kv, table=None):
+    """Logits of ids [1, s] through text_forward (causal mask, no cache),
+    the embedding gathered from ``table`` or else the tree's own table."""
+    from vis_tpu_torch.models.common.layers import causal_mask, embed
+    from vis_tpu_torch.models.llama.mllama import mllama_logits, text_forward
+
+    s = ids.shape[1]
+    embeds = embed(ids, params["text"]["embed_tokens"] if table is None else table)
+    hidden, _ = text_forward(config, params, embeds, torch.arange(s, dtype=torch.int32)[None],
+                             cross_kv, mask=causal_mask(s, s))
+    return mllama_logits(config, params, hidden)
+
+
+def case_mllama(inp):
+    """The tiny Mllama: tower, cross K/V, text-only and multimodal logits,
+    cached decode, fused vs unfused, quantized bytes and logits."""
+    from vis_tpu_torch.models.common.layers import KVCache, causal_mask, embed, length_mask
+    from vis_tpu_torch.models.llama import mllama as M
+    from vis_tpu_torch.ops.quantized import QuantizedWeight, QuantizedWeight4
+
+    config = M.MllamaConfig.tiny()
+    tc = config.text
+
+    def params_of(prefix):
+        flat = {k[len(prefix):]: inp[k] for k in inp.files if k.startswith(prefix)}
+        return M.from_jax_numpy(flat, config)
+
+    params = params_of("params/")
+    out = {}
+    vision = M.vision_forward(config.vision, params, _t(inp["pixels"]),
+                              int(inp["aspect_ratio_id"]), _t(inp["tile_mask"]))
+    out["vision"] = _np(vision)
+    cross_kv = M.compute_cross_kv(config, params, vision)
+    for i, (k, v) in enumerate(cross_kv):
+        out[f"cross{i}/k"], out[f"cross{i}/v"] = _np(k), _np(v)
+    text_ids, mm_ids = _t(inp["text_ids"]).long(), _t(inp["mm_ids"]).long()
+    out["text_logits"] = _np(_mllama_logits(config, params, text_ids, None))
+    out["mm_logits"] = _np(_mllama_logits(config, params, mm_ids, cross_kv))
+
+    # Cached decode: prefill a prefix into the cache, then one token a step.
+    prefix, s = int(inp["prefix"]), mm_ids.shape[1]
+    table = params["text"]["embed_tokens"]
+    cache = KVCache.create(len(config.self_layer_indices), 1, 32, tc.num_kv_heads,
+                           tc.head_dim_, tc.dtype, "cpu")
+    mask = causal_mask(prefix, 32) + length_mask(32, torch.tensor([prefix]))
+    hidden, cache = M.text_forward(config, params, embed(mm_ids[:, :prefix], table),
+                                   torch.arange(prefix, dtype=torch.int32)[None], cross_kv,
+                                   cache=cache, mask=mask)
+    cache.set_lengths([prefix])
+    cached = [M.mllama_logits(config, params, hidden)[0, -1]]
+    for t in range(prefix, s):
+        hidden, cache = M.text_forward(config, params, embed(mm_ids[:, t:t + 1], table),
+                                       torch.tensor([[t]], dtype=torch.int32), cross_kv,
+                                       cache=cache, mask=cache.decode_mask())
+        cached.append(M.mllama_logits(config, params, hidden)[0, -1])
+    out["cached_logits"] = _np(torch.stack(cached))
+
+    # Fused against unfused, plain and int8; cross layers keep k/v apart.
+    layout_ok = True
+    for variant, base in (("plain", params), ("int8", M.quantize_mllama_params(params, "int8"))):
+        fused = M.fuse_mllama_projections(config, base)
+        for idx, layer in enumerate(fused["text"]["layers"]):
+            cross = idx in config.cross_attention_layers
+            layout_ok &= (("qkv_proj" in layer) != cross and ("k_proj" in layer) == cross
+                          and "gateup_proj" in layer["mlp"])
+        for name, tree in (("fused", fused), ("unfused", base)):
+            out[f"{name}/{variant}"] = _np(_mllama_logits(
+                config, tree, mm_ids, M.compute_cross_kv(config, tree, vision), table))
+    out["fused_layout_ok"] = np.array(layout_ok)
+
+    for mode in ("int4", "int8"):
+        carried = params_of(f"{mode}/params/")
+        ours = M.quantize_mllama_params(M.fuse_mllama_projections(config, params), mode=mode)
+        differ = []
+
+        def compare(a, b, path):
+            if isinstance(a, dict):
+                for k in a:
+                    compare(a[k], b[k], f"{path}/{k}")
+            elif isinstance(a, list):
+                for i, (x, y) in enumerate(zip(a, b)):
+                    compare(x, y, f"{path}/{i}")
+            elif isinstance(a, (QuantizedWeight, QuantizedWeight4)):
+                if not (type(a) is type(b) and torch.equal(a.q, b.q)
+                        and torch.equal(a.scale, b.scale)):
+                    differ.append(path)
+
+        compare(carried["text"], ours["text"], "text")
+        out[f"{mode}/bytes_equal"] = np.array(not differ)
+        out[f"{mode}/bytes_differ"] = np.array(" ".join(differ))
+        kv = M.compute_cross_kv(config, carried, vision)
+        out[f"{mode}/mm_logits"] = _np(_mllama_logits(config, carried, mm_ids, kv, table))
+        out[f"{mode}/mm_logits_qembed"] = _np(_mllama_logits(config, carried, mm_ids, kv))
+    return out
+
+
+def _config_from_json(data):
+    """An MllamaConfig from the JSON of its fields (dtypes by name)."""
+    from vis_tpu_torch.models.common.decoder import DecoderConfig
+    from vis_tpu_torch.models.llama.mllama import MllamaConfig, MllamaVisionConfig
+
+    def dtype(name):
+        return getattr(torch, name)
+
+    vision = dict(data["vision"], dtype=dtype(data["vision"]["dtype"]))
+    vision["intermediate_layers_indices"] = tuple(vision["intermediate_layers_indices"])
+    text = dict(data["text"], dtype=dtype(data["text"]["dtype"]))
+    if text["rope_scaling"] is not None:
+        text["rope_scaling"] = tuple(tuple(item) for item in text["rope_scaling"])
+    return MllamaConfig(vision=MllamaVisionConfig(**vision), text=DecoderConfig(**text),
+                        cross_attention_layers=tuple(data["cross_attention_layers"]),
+                        image_token_id=data["image_token_id"], eos_token_id=data["eos_token_id"])
+
+
+def _config_to_json(config) -> str:
+    """The inverse of _config_from_json, in the JAX side's format."""
+    def plain(value):
+        if isinstance(value, dict):
+            return {k: plain(v) for k, v in value.items()}
+        if isinstance(value, (tuple, list)):
+            return [plain(v) for v in value]
+        if isinstance(value, torch.dtype):
+            return str(value).replace("torch.", "")
+        return value
+
+    return json.dumps(plain(dataclasses.asdict(config)))
+
+
+def _quantized_leaves(a, b, path, differ):
+    """Walks two trees; returns the number of quantized leaves of ``a`` and
+    records in ``differ`` every path whose leaf type or bytes differ."""
+    from vis_tpu_torch.ops.quantized import QuantizedWeight, QuantizedWeight4
+
+    if isinstance(a, dict):
+        if a.keys() != b.keys():
+            differ.append(f"{path} keys")
+            return 0
+        return sum(_quantized_leaves(a[k], b[k], f"{path}/{k}", differ) for k in a)
+    if isinstance(a, list):
+        return sum(_quantized_leaves(x, y, f"{path}/{i}", differ)
+                   for i, (x, y) in enumerate(zip(a, b)))
+    if type(a) is not type(b):
+        differ.append(f"{path} {type(a).__name__} != {type(b).__name__}")
+        return 0
+    if isinstance(a, (QuantizedWeight, QuantizedWeight4)):
+        if not (torch.equal(a.q, b.q) and torch.equal(a.scale, b.scale)):
+            differ.append(path)
+        return 1
+    if not torch.equal(a, b):
+        differ.append(path)
+    return 0
+
+
+def case_engine_mllama(inp):
+    """The Mllama engine on the tiny engine config (greedy, sampled with
+    replayed uniforms, free-form), device tiles, vision quantization,
+    configs, routing, refusals and the pipeline with the auditor on the
+    port."""
+    from vis_tpu_torch.models.common.decoder import params_from_numpy
+    from vis_tpu_torch.models.llama.mllama import MllamaConfig, from_jax_numpy
+    from vis_tpu_torch.ops.frame_cache import get_frame
+    from vis_tpu_torch.ops.preprocess_mllama_device import preprocess_frame_mllama_device
+    from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving.engine_mllama import (
+        MllamaEngine,
+        MllamaEngineBackend,
+        small_mllama_config,
+    )
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    out = {}
+    config = _config_from_json(json.loads(str(inp["config"])))
+    flat = {k[len("params/"):]: inp[k] for k in inp.files if k.startswith("params/")}
+    max_cache, decode_chunk, window = inp["settings"].tolist()
+    settings = E.ServingSettings(max_cache_tokens=max_cache, decode_chunk=decode_chunk,
+                                 lookahead=window, device_preprocess=False, min_json_tokens=0)
+    tok = ByteTokenizer(vocab_size=config.text.vocab_size)
+    decode = tok.decode
+
+    def recording(ids):  # the engine's final decode is the whole generation
+        tok.last = list(ids)
+        return decode(ids)
+
+    tok.decode = recording
+    engine = MllamaEngine("tiny-mllama", config, from_jax_numpy(flat, config), tok, "cpu",
+                          settings)
+    uniforms = _t(inp["uniforms"])
+    for mode, (with_image, kwargs) in json.loads(str(inp["modes"])).items():
+        if kwargs["temperature"] > 0:
+            replay = iter(uniforms)
+            engine._uniforms = lambda: (lambda shape: next(replay))
+        out[f"{mode}/text"] = np.array(engine.generate(
+            str(inp["prompt"]), str(inp["image"]) if with_image else None, **kwargs))
+        out[f"{mode}/tokens"] = np.array(tok.last, np.int64)
+
+    for i, path in enumerate(json.loads(str(inp["tile_images"]))):
+        tiles = preprocess_frame_mllama_device(torch.from_numpy(get_frame(path).copy()))
+        out[f"tiles{i}/device"] = _np(tiles.tiles)
+        out[f"tiles{i}/meta"] = np.array([tiles.aspect_ratio_id, tiles.num_tiles])
+
+    old_keys = frozenset({"qkv", "proj", "fc1", "fc2", "patch_embed", "gate_proj", "up_proj",
+                          "down_proj"})
+    for tower in ("qwen", "mllama"):
+        def tree(kind):
+            prefix = f"towers/{tower}/{kind}/"
+            return params_from_numpy({k[len(prefix):]: inp[k] for k in inp.files
+                                      if k.startswith(prefix)}, torch.float32)
+
+        plain = tree("float")
+        for mode in ("int4", "int8"):
+            differ = []
+            ours = E._quantize_vision_tree(plain, mode)
+            count = _quantized_leaves(tree(mode), ours, tower, differ)
+            out[f"towers/{tower}/{mode}/equal"] = np.array(not differ)
+            out[f"towers/{tower}/{mode}/differ"] = np.array(" ".join(differ))
+            out[f"towers/{tower}/{mode}/quantized"] = np.array(count)
+            if tower == "qwen":
+                keys, E._VISION_QUANT_KEYS = E._VISION_QUANT_KEYS, old_keys
+                before = E._quantize_vision_tree(plain, mode)
+                E._VISION_QUANT_KEYS = keys
+                same = []
+                _quantized_leaves(before, ours, tower, same)
+                out["towers/qwen/unchanged"] = np.array(
+                    not same and bool(out.get("towers/qwen/unchanged", True)))
+
+    from vis_tpu_torch.ops.quantized import QuantizedWeight, QuantizedWeight4
+    from vis_tpu_torch.serving.engine_mllama import _random_target_params
+
+    def layout(tree, path, acc):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                layout(v, f"{path}/{k}", acc)
+        elif isinstance(tree, list):
+            for i, v in enumerate(tree):
+                layout(v, f"{path}/{i}", acc)
+        elif isinstance(tree, (QuantizedWeight, QuantizedWeight4)):
+            layout(tree.q, f"{path}/q", acc)
+            layout(tree.scale, f"{path}/scale", acc)
+        else:
+            acc[path] = [list(tree.shape), str(tree.dtype).replace("torch.", "")]
+        return acc
+
+    layout_config = _config_from_json(json.loads(str(inp["layout_config"])))
+    for mode in ("int4", "int8"):
+        tree = _random_target_params(layout_config, torch.Generator().manual_seed(0), "cpu", mode)
+        out[f"layout/{mode}"] = np.array(json.dumps(layout(tree, "", {})))
+    out["configs/target"] = np.array(_config_to_json(MllamaConfig.llama32_11b_vision()))
+    out["configs/small"] = np.array(_config_to_json(small_mllama_config()))
+    out["jax_configs"] = inp["jax_configs"]
+
+    workdir = Path(str(inp["workdir"]))
+    model = "meta-llama/Llama-3.2-11B-Vision-Instruct"
+    os.environ.update({
+        "DEV_PROFILE": "small", "QUANTIZATION": "int4", "VOCAB_QUANTIZATION": "int4",
+        "KV_QUANTIZATION": "none", "LOG_TO_FILE": "false", "TORCH_DEVICE": "cpu",
+        "CHECKPOINT_DIR": str(workdir / "no_checkpoints"),
+    })
+    from vis_tpu_torch.utils.config import get_config
+
+    get_config(reload=True)
+    built = E.build_engine("auditor", model, "cpu")
+    layers = built.params["text"]["layers"]
+    out["routing"] = np.array(json.dumps({
+        "type": type(built).__name__, "name": built.name,
+        "backend": MllamaEngineBackend(built).name,
+        "layer0": type(layers[0]["qkv_proj"]).__name__,
+        "cross_q": type(layers[1]["q_proj"]).__name__,
+        "vision_q": type(built.params["local_layers"][0]["q_proj"]).__name__}))
+
+    def refused(call, errors=(NotImplementedError,)):
+        try:
+            call()
+        except errors as exc:
+            return str(exc)
+        return ""
+
+    os.environ["KV_QUANTIZATION"] = "int8"
+    get_config(reload=True)
+    out["refused/kv_int8"] = np.array(refused(lambda: E.build_engine("auditor", model, "cpu")))
+    os.environ["KV_QUANTIZATION"] = "none"
+    served = workdir / "checkpoints" / model.split("/")[-1]
+    served.mkdir(parents=True)
+    (served / "model.safetensors").write_bytes(b"")
+    os.environ["CHECKPOINT_DIR"] = str(workdir / "checkpoints")
+    get_config(reload=True)
+    out["refused/checkpoint"] = np.array(refused(lambda: E.build_engine("auditor", model, "cpu")))
+    os.environ.update({"CHECKPOINT_DIR": str(workdir / "no_checkpoints"), "TORCH_DEVICE": "cuda:0",
+                       "VLM_AUDITOR_PROVIDER": "cuda", "USE_MOCK_RESPONSES": "false"})
+    get_config(reload=True)
+    from vis_tpu_torch import agents
+
+    agents.reset_agent_cache()
+    out["refused/no_cuda"] = np.array(refused(agents.get_auditor, (RuntimeError,)))
+    no_window = MllamaEngine("tiny-mllama", config, engine.params, tok, "cpu",
+                             dataclasses.replace(settings, lookahead=0))
+    out["refused/no_window"] = np.array(refused(lambda: no_window.generate(
+        "x", None, max_tokens=160, json_mode=True, json_schema="inspection")))
+    out["refused/sampled_free"] = np.array(refused(lambda: engine.generate(
+        "x", None, max_tokens=4, temperature=0.5)))
+    out["refused/no_room"] = np.array(refused(lambda: engine.generate(
+        "audit this part", None, max_tokens=max_cache - 1), (RuntimeError,)))
+    out["health"] = np.array(engine.health_check())
+
+    os.environ.update({
+        "VLM_INSPECTOR_PROVIDER": "mock", "VLM_AUDITOR_PROVIDER": "cuda",
+        "EXPLAINER_PROVIDER": "mock", "TORCH_DEVICE": "cpu", "CONSTRAINED_SCHEMA": "true",
+        "CONSTRAINED_LOOKAHEAD": "8", "DEVICE_PREPROCESS": "true",
+        "VLM_AUDITOR_MAX_TOKENS": "160", "VLM_AUDITOR_MIN_TOKENS": "150",
+        "KV_CACHE_MAX_TOKENS": "2560",
+        "DATABASE_PATH": str(workdir / "inspections.db"),
+        "CHAT_HISTORY_DB": str(workdir / "chat.db"), "UPLOAD_DIR": str(workdir / "uploads"),
+        "REPORT_DIR": str(workdir / "reports"), "LOG_DIR": str(workdir / "logs"),
+    })
+    get_config(reload=True)
+    agents.reset_agent_cache()
+    from vis_tpu_torch.orchestration.graph import run_inspection
+
+    backend = agents.get_auditor().backend
+    raw = []
+    generate = backend.generate
+
+    def recording_generate(*args, **kwargs):
+        raw.append(generate(*args, **kwargs))
+        return raw[-1]
+
+    backend.generate = recording_generate
+    state = run_inspection(str(inp["image"]), criticality="high", domain="general",
+                           user_notes="port auditor pipeline test")
+    out["pipeline/auditor_result"] = np.array(json.dumps(state["auditor_result"], default=str))
+    out["pipeline/raw"] = np.array(raw[-1] if raw else "")
+    out["pipeline/backend"] = np.array(backend.name)
+    return out
 
 
 def main() -> int:

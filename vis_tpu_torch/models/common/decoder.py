@@ -493,14 +493,40 @@ def decode_loop_lookahead(
     draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
     temperature=None, eos_id: Optional[int] = None,
 ):
+    """``lookahead_decode`` through this decoder's stack: each window is
+    one ``extend_scan`` pass (M-RoPE positions repeat the window's
+    positions on all three axes)."""
+    def extend(w_tokens, pos_mat, cache, valid_len):
+        embeds = embed(w_tokens, params["embed_tokens"])
+        positions = (pos_mat[None].expand(3, *pos_mat.shape)
+                     if config.mrope_section is not None else pos_mat)
+        return extend_scan(config, params, embeds, positions, cache, valid_len)
+
+    return lookahead_decode(first_logits, start_position, cache, constraint, forced_token,
+                            forced_state, num_windows, window, extend, draw_uniforms,
+                            temperature, eos_id)
+
+
+def lookahead_decode(
+    first_logits: torch.Tensor, start_position, cache: KVCache,
+    constraint: DecodeConstraint, forced_token: torch.Tensor,
+    forced_state: torch.Tensor, num_windows: int, window: int,
+    extend: Callable[[torch.Tensor, torch.Tensor, KVCache, Sequence[int]],
+                     Tuple[torch.Tensor, KVCache]],
+    draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
+    temperature=None, eos_id: Optional[int] = None,
+):
     """Constrained decode emitting up to ``window`` tokens per weight pass.
 
     Each window: pick position 0 under the grammar mask (argmax, or Gumbel
     sampling at ``temperature`` with uniforms from ``draw_uniforms(shape)``),
     follow the DFA's forced moves for positions 1.. (``forced_token`` /
     ``forced_state``, -1 where the state has a choice), then run the window
-    through the stack in one extend pass.  The window's tokens come to the
-    host once (the loop's one sync); with ``eos_id`` a row is done once its
+    through the model in one pass, ``extend(tokens [b, window], positions
+    [b, window], cache, valid lengths) -> (last valid logits, cache)``,
+    which writes the window's K/V at each row's cursor and moves the
+    cursors by the valid lengths.  The window's tokens come to the host
+    once (the loop's one sync); with ``eos_id`` a row is done once its
     valid span holds EOS, its cursor and position freeze, and the loop stops
     when every row is done.
 
@@ -549,11 +575,7 @@ def decode_loop_lookahead(
         valid_len = h_valid.sum(dim=1).tolist()
 
         prev_lengths, prev_pos = list(cache.lengths_host), pos
-        embeds = embed(w_tokens, params["embed_tokens"])
-        pos_mat = pos[:, None] + offs[None, :]
-        positions = (pos_mat[None].expand(3, b, window)
-                     if config.mrope_section is not None else pos_mat)
-        logits, cache = extend_scan(config, params, embeds, positions, cache, valid_len)
+        logits, cache = extend(w_tokens, pos[:, None] + offs[None, :], cache, valid_len)
         pos = pos + torch.tensor(valid_len, dtype=torch.int32, device=device)
 
         if eos_id is not None:
@@ -718,6 +740,7 @@ __all__ = [
     "gumbel_sample_token",
     "init_decoder_params",
     "lm_logits",
+    "lookahead_decode",
     "params_from_numpy",
     "prefill_scan",
     "quantize_stacked_params",

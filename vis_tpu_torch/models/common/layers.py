@@ -37,6 +37,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (x32 * weight.to(torch.float32)).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """LayerNorm with f32 statistics (population variance)."""
+    x32 = x.to(torch.float32)
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (out * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b summed and returned in f32 (inputs keep their rounding)."""
     return a.to(torch.float32) @ b.to(torch.float32)
@@ -137,9 +147,29 @@ def mrope_cos_sin(positions: torch.Tensor, head_dim: int,
     return select(cos), select(sin)
 
 
-def causal_mask(sq: int, skv: int, device=None) -> torch.Tensor:
-    """Additive [1, 1, sq, skv]: query i sees keys <= i."""
-    qi = torch.arange(sq, device=device)[:, None]
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product attention with native GQA: q [b, sq, h, d], k/v
+    [b, skv, kvh, d] with h = kvh * rep; ``mask`` additive and
+    head-agnostic ([b|1, 1, sq, skv]).  Logits and softmax in f32, the
+    probabilities cast to v's dtype before the second product, the output
+    in q's dtype."""
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, d).to(torch.float32)
+    logits = torch.einsum("bqgrd,bkgd->bgrqk", qg, k.to(torch.float32)) * d ** -0.5
+    if mask is not None:
+        if mask.shape[1] != 1:
+            raise ValueError(f"attention mask must be head-agnostic, got head dim {mask.shape[1]}")
+        logits = logits + mask[:, :, None]
+    probs = torch.softmax(logits, dim=-1).to(v.dtype).to(torch.float32)
+    out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.to(torch.float32))
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def causal_mask(sq: int, skv: int, device=None, offset: int = 0) -> torch.Tensor:
+    """Additive [1, 1, sq, skv]: query i sees keys <= i + offset."""
+    qi = torch.arange(sq, device=device)[:, None] + offset
     kj = torch.arange(skv, device=device)[None, :]
     mask = torch.where(kj <= qi, 0.0, -1e30).to(torch.float32)
     return mask[None, None]
@@ -181,6 +211,29 @@ class KVCache:
         self.lengths_host = [int(n) for n in lengths]
         self.lengths = torch.tensor(self.lengths_host, dtype=torch.int32, device=self.k.device)
 
+    def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
+        """Write k/v [b, s, kvh, d] of ``layer`` at each row's cursor; the
+        cursors move only by ``advance``, so every layer of a pass writes
+        at the same offsets."""
+        s = k_new.shape[1]
+        for row, start in enumerate(self.lengths_host):
+            self.k[layer, row, start:start + s] = k_new[row].to(self.k.dtype)
+            self.v[layer, row, start:start + s] = v_new[row].to(self.v.dtype)
+
+    def layer(self, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.k[layer], self.v[layer]
+
+    def advance(self, n: int) -> None:
+        self.set_lengths([length + n for length in self.lengths_host])
+
+    def decode_mask(self) -> torch.Tensor:
+        """Additive [b, 1, 1, max_len] for a one-token step: key j of row b
+        is visible iff j <= its cursor (the new token writes at the cursor
+        within the same step)."""
+        kj = torch.arange(self.k.shape[2], device=self.k.device)
+        return torch.where(kj[None, :] <= self.lengths[:, None], 0.0, -1e30).to(
+            torch.float32)[:, None, None, :]
+
 
 def swiglu_mlp(x: torch.Tensor, params: Params) -> torch.Tensor:
     """down(silu(gate(x)) * up(x)), with the fused gate+up layout.  Int8
@@ -203,8 +256,10 @@ __all__ = [
     "KVCache",
     "Params",
     "apply_rope",
+    "attention_scores",
     "causal_mask",
     "embed",
+    "layer_norm",
     "length_mask",
     "linear",
     "matmul_f32",

@@ -1,7 +1,8 @@
 """Inference engine: the Qwen2.5-VL inspector (preprocess -> vision encode
 -> prefill -> schema-constrained lookahead decode) and text-only decoders
 such as the Llama-3.1-8B explainer (prefill -> decode, unbatched or through
-the continuous-batching scheduler).
+the continuous-batching scheduler).  ``build_engine`` routes an Mllama
+auditor to ``serving/engine_mllama.py``.
 
 Counterpart of ``vis_tpu/serving/engine.py`` for these two paths.  The
 engine core takes its serving settings as arguments (``ServingSettings``);
@@ -570,8 +571,13 @@ class EngineBackend:
 # Engine construction
 # ---------------------------------------------------------------------------
 
+# Projection weights inside vision towers (Qwen2.5-VL blocks and merger,
+# Mllama blocks and projector), quantized by name; embeddings, norms and
+# gates are added to activations and stay float.
 _VISION_QUANT_KEYS = frozenset({
-    "qkv", "proj", "fc1", "fc2", "patch_embed", "gate_proj", "up_proj", "down_proj",
+    "qkv", "proj", "fc1", "fc2", "patch_embed",
+    "q_proj", "k_proj", "v_proj", "o_proj", "projector",
+    "gate_proj", "up_proj", "down_proj",
 })
 
 
@@ -852,16 +858,22 @@ def _is_qwen25(model_name: str) -> bool:
     return "qwen2.5-vl" in lower or "qwen2_5_vl" in lower or "qwen2.5vl" in lower
 
 
+def _is_mllama(model_name: str) -> bool:
+    lower = model_name.lower()
+    return "llama" in lower and "vision" in lower
+
+
 def _vocab_mode(role: str) -> str:
     mode = (getattr(app_config, f"{role}_vocab_quantization", "")
             or app_config.vocab_quantization)
     return app_config.quantization if mode == "same" else mode
 
 
-def build_engine(role: str, model_name: str, device, seed: int = 0) -> Engine:
+def build_engine(role: str, model_name: str, device, seed: int = 0):
     """An engine for a role from the app config (weightless profiles only):
-    the inspector and auditor are VLMs, every other role a text model, as
-    in the JAX package.  Settings that would change the reference's numbers
+    the inspector and auditor are VLMs, Qwen2.5-VL or Mllama by model name
+    (an ``MllamaEngine``), every other role a text model, as in the JAX
+    package.  Settings that would change the reference's numbers
     and are not ported raise instead of being ignored, and so does a
     checkpoint under CHECKPOINT_DIR that the reference would serve."""
     if app_config.kv_quantization == "int8":
@@ -889,16 +901,23 @@ def build_engine(role: str, model_name: str, device, seed: int = 0) -> Engine:
                 "the target text profile is ported for int4 or int8 layers with an "
                 f"int8 vocab head, not QUANTIZATION={quant} with a {vocab_mode} head")
         return build_target_text_engine(role, device, seed, settings, quant)
-    if not _is_qwen25(model_name):
+    mllama = _is_mllama(model_name)
+    if not (mllama or _is_qwen25(model_name)):
         raise NotImplementedError(
-            f"the port serves Qwen2.5-VL only among VLMs so far, not {model_name!r} ({role})"
+            f"the port serves Qwen2.5-VL and Mllama among VLMs, not {model_name!r} ({role})"
         )
+    from vis_tpu_torch.serving import engine_mllama
+
     if target:
         if quant not in ("int4", "int8") or vocab_mode != quant:
             raise NotImplementedError(
                 "the target profile is ported for int4 or int8 layers with a vocab head "
                 f"of the same precision, not QUANTIZATION={quant} with a {vocab_mode} head")
-        return build_target_engine(role, device, seed, settings, quant)
+        build = engine_mllama.build_target_mllama_engine if mllama else build_target_engine
+        return build(role, device, seed, settings, quant)
+    if mllama:
+        return engine_mllama.build_small_mllama_engine(role, device, seed, quant, vocab_mode,
+                                                       settings)
     return build_small_engine(role, device, seed, quant, vocab_mode, settings)
 
 
@@ -906,7 +925,8 @@ def _maybe_attach_scheduler(role: str, engine: Engine) -> None:
     """CONTINUOUS_BATCHING=true attaches a scheduler to the engines of the
     roles in BATCHING_ROLES ("all" = every engine)."""
     roles = {r.strip() for r in app_config.batching_roles.split(",") if r}
-    if app_config.continuous_batching and ("all" in roles or role in roles):
+    if (app_config.continuous_batching and hasattr(engine, "attach_scheduler")
+            and ("all" in roles or role in roles)):
         engine.attach_scheduler()
 
 
