@@ -14,7 +14,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    share of that bound and one PyTorch call for the same function where
    there is one (scaled_dot_product_attention for C, the int4 and int8
    weight-only matmuls for A, B and D).  A runs every projection of both
-   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 3), D the int8
+   models (Qwen2.5-VL-7B at B = 1 and 8, Llama-3.1-8B at B = 1 and 3), D the int8
    heads and every int8 qkv and o projection (Qwen at B = 1 and 8, Llama at
    B = 1 and 3, Llama-3.2-11B-Vision at B = 1 and 8), E one int8 MLP layer
    at each model's width; B, the int4 head, runs A's kernel on a one-layer
@@ -26,7 +26,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. reference: the small Qwen2.5-VL, Llama text and Mllama profiles, int4
    and int8, on the card against the same engines on the CPU (prefill
    logits, a lookahead window, one batched paged decode chunk; the Mllama
-   tower's features);
+   tower's features; one 16-step chunk of each token-a-pass decode loop,
+   greedy, sampled and schema-constrained, its first step's logits held);
 5. int4 slice: vis_tpu_torch.orchestration.graph.run_inspection on
    assets/sample.jpg, three requests, with the Qwen2.5-VL-7B inspector, the
    Llama-3.2-11B-Vision auditor and the Llama-3.1-8B explainer on the port
@@ -42,6 +43,14 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. int8 slice: the same under QUANTIZATION=int8 (int8 layers, vocab tables
    and vision projections; the auditor alone launches D and E as its
    passes predict).  Kernels C, D and E must have launched;
+   Then the default-decode phase: the int4 models again with every decode
+   setting at the config's default (free-form sampled decode, no lookahead
+   window, no scheduler, host preprocess; 128-token budgets): one auditor
+   request alone (its B launches must be passes x 161 + the prefill's),
+   one run_inspection request, one more under CONSTRAINED_SCHEMA=true with
+   the window still 0 (both VLMs must answer with the schema's keys), and
+   two turns of a KV-cached explainer chat session.  No role's engine may
+   raise, every role must decode tokens, and A-D must launch;
 7. probes: the int4 probe tools' kernels (F, G, H, I, J, K, Q) against
    their plain versions at the probes' full shapes (7B MLP stack, int4
    head), with the tolerance stated, timed beside their bound and PyTorch's
@@ -145,7 +154,7 @@ PROJECTIONS = {
 LAYERS = 28
 HEAD = (152064, 3584)
 # Llama-3.1-8B decoder projections, [out, in], which kernel A runs at the
-# explainer scheduler's B = 3.
+# explainer scheduler's B = 3 and at B = 1 when the explainer decodes alone.
 LLAMA_PROJECTIONS = {
     "qkv": (6144, 4096),
     "o": (4096, 4096),
@@ -282,8 +291,9 @@ def phase_kernels() -> dict:
 
 def _kernel_a(gen, dev) -> dict:
     """A at every projection of both models: Qwen2.5-VL-7B at B = 1 and 8
-    (the inspector's lookahead windows), Llama-3.1-8B at B = 3 (the
-    scheduler's slots), each held to its plain version at layers 0 and 27
+    (the inspector's token steps and lookahead windows), Llama-3.1-8B at
+    B = 1 (the explainer's unscheduled steps) and 3 (the scheduler's
+    slots), each held to its plain version at layers 0 and 27
     (max|err| <= 1e-3 * max|y|: only the order of the f32 sums differs).
     Timing walks the 28 layers so each launch reads its weight from device
     memory, as a decode window does.  Beside the kernel: its plain version,
@@ -295,7 +305,7 @@ def _kernel_a(gen, dev) -> dict:
 
     worst, table = 0.0, {}
     for model, projections, batches in (("qwen", PROJECTIONS, (1, 8)),
-                                        ("llama", LLAMA_PROJECTIONS, (3,))):
+                                        ("llama", LLAMA_PROJECTIONS, (1, 3))):
         for name, (out, inn) in projections.items():
             w = random_q4(gen, LAYERS, out=out, inn=inn, device=dev)
             q, scale = w.q, w.scale
@@ -725,8 +735,110 @@ def phase_reference(quantization: str) -> dict:
     for name in ("prefill", "window"):
         worst = max(worst, _hold(f"small Qwen2.5-VL {quantization}", name, out["plain"][name],
                                  out["kernel"][name]))
-    worst = max(worst, _reference_text(quantization), _reference_mllama(quantization))
+    worst = max(worst, _reference_text(quantization), _reference_mllama(quantization),
+                _reference_loops(cpu, gpu, quantization))
     return {"worst_err_over_tol": worst}
+
+
+LOOP_STEPS, LOOP_TEMPERATURE = 16, 0.7
+LOOP_MODES = ("greedy", "sampled", "constrained", "constrained_sampled")
+
+
+def _loop_state(side, mode: str, uniforms) -> dict:
+    """A loop mode's inputs on ``side``'s device: the inspection schema's
+    DFA at its start for the constrained modes, and a draw over the shared
+    uniforms for the sampled ones."""
+    from vis_tpu_torch.serving.engine import request_constraint
+
+    draws = iter([u.to(side.device) for u in uniforms])
+    constraint = (request_constraint(side._json_tables("inspection"), 160, 0, side.device)
+                  if mode.startswith("constrained") else None)
+    return {"con": constraint, "draw": lambda shape: next(draws)}
+
+
+def _hold_loops(profile: str, out: dict) -> float:
+    """Each loop mode's first step on the card against the CPU (logits at
+    2^-5 * max|ref|, argmax equal); prints how many of the chunk's tokens
+    lead equal on both sides."""
+    worst = 0.0
+    for mode in LOOP_MODES:
+        (want, want_tokens), (got, got_tokens) = out["plain"][mode], out["kernel"][mode]
+        worst = max(worst, _hold(profile, f"{mode} loop step 1", want, got, argmax=True))
+        same = next((i for i, (a, b) in enumerate(zip(want_tokens, got_tokens)) if a != b),
+                    len(want_tokens))
+        print(f"[reference] {profile} {mode} loop: {same} of {len(want_tokens)} tokens "
+              f"lead equal on the card and the CPU")
+    return worst
+
+
+def _run_loop(side, mode: str, state: dict, logits, pos: int, cache, steps: int):
+    """One chunk of ``mode``'s dense decode loop on ``side``."""
+    from vis_tpu_torch.models.common.decoder import (
+        decode_loop_scan,
+        decode_loop_scan_constrained,
+        decode_loop_scan_sampled,
+    )
+
+    tc, params, eos = side.text_config, side.params["text"], side.tokenizer.eos_id
+    if mode == "greedy":
+        tokens, logits, _ = decode_loop_scan(tc, params, logits, pos, cache, steps, eos_id=eos)
+    elif mode == "sampled":
+        tokens, logits, _ = decode_loop_scan_sampled(
+            tc, params, logits, pos, cache, state["draw"], LOOP_TEMPERATURE, steps, eos_id=eos)
+    else:
+        sampling = ({"draw_uniforms": state["draw"], "temperature": LOOP_TEMPERATURE}
+                    if mode == "constrained_sampled" else {})
+        tokens, logits, _, state["con"] = decode_loop_scan_constrained(
+            tc, params, logits, pos, cache, state["con"], steps, eos_id=eos, **sampling)
+    return tokens, logits
+
+
+def _uniforms(vocab: int) -> list:
+    import torch
+
+    gen = torch.Generator().manual_seed(SEED)
+    return [torch.rand((1, vocab), generator=gen).clamp_min_(1e-20) for _ in range(LOOP_STEPS)]
+
+
+def _clone_cache(cache):
+    from vis_tpu_torch.models.common.layers import KVCache
+
+    return KVCache(cache.k.clone(), cache.v.clone(), cache.lengths.clone(),
+                   list(cache.lengths_host))
+
+
+def _reference_loops(cpu, gpu, quantization: str) -> float:
+    """The dense decode loops of the config's default decode paths
+    (``decode_loop_scan``, ``decode_loop_scan_sampled`` at 0.7 and
+    ``decode_loop_scan_constrained`` under the inspection schema, greedy
+    and sampled) on the small Qwen2.5-VL profile (``cpu`` and ``gpu``, the
+    same weights) and the small Llama text profile, one 16-step chunk each
+    from a text prompt's prefill: one step, then 15 chained on it, the same
+    uniforms on both sides.  Every projection runs kernel A (int4) or D and
+    E (int8) at B = 1, the head B or D."""
+    from vis_tpu_torch.serving import engine as E
+
+    text_cpu = E.build_small_text_engine("reference", "cpu", SEED, quantization, "int8",
+                                         settings=cpu.settings)
+    text_gpu = E.Engine(text_cpu.name, text_cpu.config, _to_device(text_cpu.params, DEVICE),
+                        text_cpu.tokenizer, DEVICE, text_cpu.settings)
+    worst = 0.0
+    for profile, pair in ((f"small Qwen2.5-VL {quantization}", (cpu, gpu)),
+                          (f"small Llama text {quantization}", (text_cpu, text_gpu))):
+        uniforms = _uniforms(pair[0].text_config.vocab_size)
+        out = {}
+        for label, side in zip(("plain", "kernel"), pair):
+            cache0, logits0, next_pos, _, _ = side._prefill_request(
+                "Describe the part.", None, max_tokens=64, max_image_dim=512)
+            out[label] = {}
+            for mode in LOOP_MODES:
+                cache, state = _clone_cache(cache0), _loop_state(side, mode, uniforms)
+                first, logits = _run_loop(side, mode, state, logits0, next_pos, cache, 1)
+                rest, _ = _run_loop(side, mode, state, logits, next_pos + 1, cache,
+                                    LOOP_STEPS - 1)
+                out[label][mode] = (logits.cpu(), first[0].tolist() + rest[0].tolist())
+        worst = max(worst, _hold_loops(profile, out))
+    return worst
 
 
 def _reference_mllama(quantization: str) -> float:
@@ -737,10 +849,13 @@ def _reference_mllama(quantization: str) -> float:
     features, the prefill logits of a short prompt (bucket 128, so every
     text projection runs through kernel B at int4, or D and E at int8, and
     the head at B = 1) and one 8-token window's last logits, each held to
-    2^-5 * max|ref|.  Fails unless B (int4), or D and E (int8), launched on
-    the card."""
+    2^-5 * max|ref|; then the loop engine's token-a-pass chunk from the
+    prefill with each of the four picks of ``_reference_loops``, its first
+    step held as theirs are.  Fails unless B (int4), or D and E (int8),
+    launched on the card."""
     import torch
 
+    from vis_tpu_torch.models.common.decoder import TokenPicker
     from vis_tpu_torch.models.common.layers import KVCache, causal_mask, length_mask
     from vis_tpu_torch.models.llama.mllama import (
         compute_cross_kv,
@@ -765,7 +880,7 @@ def _reference_mllama(quantization: str) -> float:
     seq_len, bucket, max_len = len(ids), 128, 256
     wrappers = ((qz.q4_matmul,) if quantization == "int4"
                 else (qz.q8_matmul, qz.fused_swiglu_mlp))
-    out = {}
+    out, loops, uniforms = {}, {}, _uniforms(cfg.text.vocab_size)
     for label, side in (("plain", cpu), ("kernel", gpu)):
         dev = side.device
         for fn in wrappers:
@@ -781,6 +896,15 @@ def _reference_mllama(quantization: str) -> float:
         prefill = side._prefill(side._embed_tokens(padded.to(dev)),
                                 torch.arange(bucket, dtype=torch.int32, device=dev)[None],
                                 cross_kv, cache, seq_len)
+        loops[label] = {}
+        for mode in LOOP_MODES:  # the loop engine's chunk, one 16-step chunk a pick
+            state, loop_cache = _loop_state(side, mode, uniforms), _clone_cache(cache)
+            picker = TokenPicker(state["con"], state["draw"] if mode.endswith("sampled") else None,
+                                 LOOP_TEMPERATURE)
+            first, logits = side._decode_chunk(prefill, cross_kv, loop_cache, seq_len, 1, picker)
+            rest, _ = side._decode_chunk(logits, cross_kv, loop_cache, seq_len + 1,
+                                         LOOP_STEPS - 1, picker)
+            loops[label][mode] = (logits.cpu(), first[0].tolist() + rest[0].tolist())
         n = len(window)
         mask = (causal_mask(n, max_len, dev, offset=seq_len)
                 + length_mask(max_len, torch.tensor([seq_len + n], device=dev)))
@@ -794,8 +918,9 @@ def _reference_mllama(quantization: str) -> float:
     print(f"[reference] small Mllama {quantization} kernel launches on the card: {launches}")
     if not all(n > 0 for n in launches.values()):
         raise AssertionError(f"small Mllama {quantization}: a kernel never launched {launches}")
-    return max(_hold(f"small Mllama {quantization}", name, out["plain"][name],
-                     out["kernel"][name]) for name in ("features", "prefill", "window"))
+    return max([_hold(f"small Mllama {quantization}", name, out["plain"][name],
+                      out["kernel"][name]) for name in ("features", "prefill", "window")]
+               + [_hold_loops(f"small Mllama {quantization}", loops)])
 
 
 def _hold(profile: str, name: str, want, got, argmax: bool = False) -> float:
@@ -875,17 +1000,32 @@ def _reference_text(quantization: str) -> float:
 
 
 class _Recorder:
-    """Keeps the inspector backend's raw outputs for the schema check."""
+    """Keeps a backend's raw outputs (for the schema check) and every
+    exception a call raised (the agents turn one into a failed analysis
+    or fallback text, so the text alone cannot tell)."""
 
     def __init__(self, backend):
+        import threading
+
         self.backend = backend
         self.name = backend.name
-        self.outputs = []
+        self.engine = backend.engine
+        self.outputs, self.errors = [], []
+        self._lock = threading.Lock()
 
     def generate(self, *args, **kwargs):
-        text = self.backend.generate(*args, **kwargs)
-        self.outputs.append(text)
+        try:
+            text = self.backend.generate(*args, **kwargs)
+        except Exception as exc:
+            with self._lock:
+                self.errors.append(repr(exc))
+            raise
+        with self._lock:
+            self.outputs.append(text)
         return text
+
+    def generate_stream(self, *args, **kwargs):
+        raise AssertionError("a stateless chat fallback ran instead of a KV-cached session")
 
     def health_check(self):
         return self.backend.health_check()
@@ -1008,16 +1148,18 @@ def _check_auditor(label: str, i, result: dict, raw: str, engine, keys) -> None:
                              f"tokens, not {low}..{high}")
 
 
-def _auditor_alone(label: str, auditor, recorder, wrappers: dict, keys) -> None:
+def _auditor_alone(label: str, auditor, recorder, wrappers: dict, check) -> None:
     """One auditor request with nothing else running (the counts are not
     atomic across the dual-VLM node's two threads, and the inspector's head
     runs on B too).  Its kernel launches must be what its decode passes and
-    prefill bucket predict: each pass (a lookahead window) runs every text
+    prefill bucket predict: each pass (a lookahead window or one token)
+    runs every text
     projection of the 40 layers and the head at B <= 8, int4 on kernel B
     (4 a layer + 1), int8 qkv, o, cross q and the head on D (2 a layer + 1)
     and each MLP on E (1 a layer); the prefill runs the same when its
     bucket is at most MAX_KERNEL_ROWS rows, else only its head (B = 1).  No
-    other kernel may launch."""
+    other kernel may launch.  ``check(result, raw, engine)`` judges the
+    answer."""
     import torch
 
     from vis_tpu_torch.ops import quantized as qz
@@ -1031,19 +1173,23 @@ def _auditor_alone(label: str, auditor, recorder, wrappers: dict, keys) -> None:
         per_pass, head = {"D": 2 * layers + 1, "E": layers}, {"D": 1, "E": 0}
     for fn in wrappers.values():
         fn.launches = 0
+    decode_s = engine.decode_device_s_total
     start = time.perf_counter()
     result = auditor.verify(SAMPLE, InspectionContext(image_id="chip-smoke", criticality="high",
                                                       domain="general"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
-    _check_auditor(label, "alone", result.model_dump(), recorder.outputs[-1], engine, keys)
+    decode_s = engine.decode_device_s_total - decode_s
+    check(result.model_dump(), recorder.outputs[-1], engine)
     passes, bucket = engine.last_decode_passes, engine.last_prefill_bucket
     prefill = per_pass if bucket <= qz.MAX_KERNEL_ROWS else head
     predicted = {k: passes * n + prefill[k] for k, n in per_pass.items()}
     launches = {k: fn.launches for k, fn in wrappers.items()}
     print(f"[{label}] auditor alone: wall {wall:.3f} s, {engine.last_decode_tokens} tokens in "
-          f"{passes} windows, prefill bucket {bucket}; launches {launches}, predicted "
-          f"{predicted} ({per_pass} a window + {prefill} in prefill)")
+          f"{passes} passes, decode {decode_s:.3f} s ({1e3 * decode_s / max(passes, 1):.2f} ms "
+          f"a pass, {1e3 * decode_s / max(engine.last_decode_tokens, 1):.2f} ms a token), "
+          f"prefill bucket {bucket}; launches {launches}, predicted "
+          f"{predicted} ({per_pass} a pass + {prefill} in prefill)")
     if any(launches[k] != predicted.get(k, 0) for k in wrappers):
         raise AssertionError(f"{label}: the auditor's launches {launches} are not the "
                              f"predicted {predicted}")
@@ -1096,7 +1242,9 @@ def phase_slice(label: str, profile: dict, required: str) -> dict:
 
     wrappers = {"A": qz.q4_matmul_stacked, "B": qz.q4_matmul, "C": fa.flash_attention,
                 "D": qz.q8_matmul, "E": qz.fused_swiglu_mlp}
-    _auditor_alone(label, auditor, auditor_recorder, wrappers, keys)
+    _auditor_alone(label, auditor, auditor_recorder, wrappers,
+                   lambda result, raw, eng: _check_auditor(label, "alone", result, raw, eng,
+                                                           keys))
     for fn in wrappers.values():
         fn.launches = 0
     for i in range(REQUESTS):
@@ -1138,6 +1286,147 @@ def phase_slice(label: str, profile: dict, required: str) -> dict:
     launches = {k: fn.launches for k, fn in wrappers.items()}
     print(f"[{label}] kernel launches during the {REQUESTS} requests: {launches}")
     for k in required:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the {label} path")
+    return launches
+
+
+# The default-decode phase: the bench profile at int4 with every decode
+# setting at the config's default (free-form sampled decode at the agents'
+# own temperatures, no grammar, no lookahead window, no scheduler, host
+# preprocess) and short budgets; DEFAULT_UNSET go back to their defaults.
+DEFAULT_DECODE = {**PROFILE, "CONSTRAINED_JSON": "false", "CONSTRAINED_SCHEMA": "false",
+                  "CONSTRAINED_LOOKAHEAD": "0", "CONTINUOUS_BATCHING": "false",
+                  "DECODE_CHUNK": "64", "DEVICE_PREPROCESS": "false",
+                  "VLM_INSPECTOR_MAX_TOKENS": "128", "VLM_AUDITOR_MAX_TOKENS": "128",
+                  "EXPLAINER_MAX_TOKENS": "128"}
+DEFAULT_UNSET = ("VLM_INSPECTOR_TEMPERATURE", "VLM_AUDITOR_TEMPERATURE", "EXPLAINER_TEMPERATURE",
+                 "VLM_INSPECTOR_MIN_TOKENS", "VLM_AUDITOR_MIN_TOKENS",
+                 "CONSTRAINED_JSON_MIN_TOKENS")
+CHAT_QUESTIONS = ("Where is the worst damage?", "Is it safe to keep running?")
+
+
+def _role_summary(label: str, step: str, recorders: dict, before: dict) -> dict:
+    """Fail on any exception a role's backend raised; returns each role's
+    decode tokens and seconds since ``before`` (engine counters) and prints
+    ms a token."""
+    summary = {}
+    for role, rec in recorders.items():
+        if rec.errors:
+            raise AssertionError(f"{label} {step}: the {role}'s engine raised {rec.errors}")
+        tokens = rec.engine.decode_tokens_total - before[role][0]
+        seconds = rec.engine.decode_device_s_total - before[role][1]
+        summary[role] = (tokens, seconds)
+    print(f"[{label}] {step}: " + ", ".join(
+        f"{role} {n} tokens in {sec:.3f} s of decode ({1e3 * sec / max(n, 1):.2f} ms a token)"
+        for role, (n, sec) in summary.items()))
+    return summary
+
+
+def phase_default_decode(label: str = "default decode") -> dict:
+    """The decode paths of the config's defaults on the int4 bench models
+    (full width and depth), through the port's entry points: one auditor
+    request alone (free-form sampled, a pass a token: its kernel B
+    launches must equal passes x 161 + the prefill's), one run_inspection
+    request, the same request under CONSTRAINED_SCHEMA=true with the window
+    still 0 (both VLM answers must carry the inspection schema's keys in
+    order), and two turns of one KV-cached explainer chat session.  Fails
+    on any exception from a role's engine, a role that decoded no token, or
+    a kernel of A-D that never launched in the last three steps.  Returns
+    their launches."""
+    import torch
+
+    from vis_tpu_torch import agents
+    from vis_tpu_torch.ops import flash_attention as fa
+    from vis_tpu_torch.ops import quantized as qz
+    from vis_tpu_torch.orchestration.graph import run_inspection
+    from vis_tpu_torch.serving.schema import SCHEMAS
+    from vis_tpu_torch.utils.config import get_config
+    from vis_tpu_torch.utils.logger import get_timings
+
+    for key in DEFAULT_UNSET:
+        os.environ.pop(key, None)
+    os.environ.update(DEFAULT_DECODE)
+    get_config(reload=True)
+    agents.install(DEVICE, seed=SEED)
+    roles = {"inspector": agents.get_inspector, "auditor": agents.get_auditor,
+             "explainer": agents.get_explainer}
+    recorders = {}
+    for role, get in roles.items():
+        start = time.perf_counter()
+        agent = get()
+        torch.cuda.synchronize()
+        recorders[role] = agent.backend = _Recorder(agent.backend)
+        engine = recorders[role].engine
+        print(f"[{label}] built {engine.name} in {time.perf_counter() - start:.2f} s "
+              f"(lookahead {engine.settings.lookahead}, decode chunk "
+              f"{engine.settings.decode_chunk}, temperature {agent.temperature}, scheduler "
+              f"{getattr(engine, 'scheduler', None)})")
+        if engine.settings.lookahead != 0 or getattr(engine, "scheduler", None) is not None:
+            raise AssertionError(f"{label}: the {role}'s engine was not built under the "
+                                 "default decode settings")
+    keys = [k for k, _ in SCHEMAS["inspection"].props]
+    wrappers = {"A": qz.q4_matmul_stacked, "B": qz.q4_matmul, "C": fa.flash_attention,
+                "D": qz.q8_matmul, "E": qz.fused_swiglu_mlp}
+
+    def counters():
+        return {role: (rec.engine.decode_tokens_total, rec.engine.decode_device_s_total)
+                for role, rec in recorders.items()}
+
+    def no_raise(result, raw, engine):
+        if recorders["auditor"].errors or not engine.last_decode_tokens:
+            raise AssertionError(f"{label}: the auditor alone raised "
+                                 f"{recorders['auditor'].errors} or decoded no token")
+
+    _auditor_alone(label, roles["auditor"](), recorders["auditor"], wrappers, no_raise)
+    for fn in wrappers.values():
+        fn.launches = 0
+    for step, schema in (("free-form request", "false"), ("schema request", "true")):
+        os.environ["CONSTRAINED_SCHEMA"] = schema
+        get_config(reload=True)
+        get_timings(reset=True)
+        before = counters()
+        start = time.perf_counter()
+        state = run_inspection(str(SAMPLE), criticality="high", domain="general",
+                               user_notes="chip smoke, default decode")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        summary = _role_summary(label, step, recorders, before)
+        spans = {k: round(sum(v), 4) for k, v in get_timings().items()
+                 if k.startswith(("engine.", "mllama.", "explainer"))}
+        verdict = (state.get("safety_verdict") or {}).get("verdict")
+        print(f"[{label}] {step}: wall {wall:.3f} s, spans {spans}, verdict {verdict}, "
+              f"inspector failed {state['inspector_result']['analysis_failed']}, auditor "
+              f"failed {state['auditor_result']['analysis_failed']}")
+        if not all(n > 0 for n, _ in summary.values()):
+            raise AssertionError(f"{label} {step}: a role decoded no token {summary}")
+        if schema == "true":
+            for role in ("inspector", "auditor"):
+                doc = json.loads(recorders[role].outputs[-1])
+                if list(doc) != keys or state[f"{role}_result"]["analysis_failed"]:
+                    raise AssertionError(f"{label} {step}: the {role}'s answer has keys "
+                                         f"{list(doc)}, not {keys}")
+    os.environ["CONSTRAINED_SCHEMA"] = "false"
+    get_config(reload=True)
+    explainer = roles["explainer"]()
+    before, context = counters(), json.dumps(state["consensus"], default=str)[:1500]
+    for turn, question in enumerate(CHAT_QUESTIONS):
+        start = time.perf_counter()
+        reply = "".join(explainer.chat_session_stream("chip-smoke", context, question))
+        torch.cuda.synchronize()
+        engine = recorders["explainer"].engine
+        print(f"[{label}] chat turn {turn}: wall {time.perf_counter() - start:.3f} s, "
+              f"{engine.last_decode_tokens} tokens, {len(reply)} characters")
+        if not engine.last_decode_tokens:
+            raise AssertionError(f"{label}: chat turn {turn} decoded no token")
+    session = explainer._chat_sessions.get("chip-smoke")
+    if session is None or engine.decode_tokens_total == before["explainer"][0]:
+        raise AssertionError(f"{label}: the chat turns did not run on a KV-cached session")
+    print(f"[{label}] chat session: position {session.position}, cursor "
+          f"{session.cache.lengths_host[0]} of {session.cache.k.shape[2]}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"[{label}] kernel launches in the two requests and the chat: {launches}")
+    for k in "ABCD":
         if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the {label} path")
     return launches
@@ -1833,9 +2122,11 @@ def main() -> int:
     _release_engines()
     int8 = phase_slice("int8 slice", INT8_PROFILE, "CDE")
     _release_engines()
+    default = phase_default_decode()
+    _release_engines()
     probe_kernels, probe_launches = phase_probes()
     kernels.update(probe_kernels)
-    launches = {k: int4[k] + int8[k] for k in int4}
+    launches = {k: int4[k] + int8[k] + default[k] for k in int4}
     launches.update(probe_launches)
     rows = [
         {"name": f"{k}: {name}", "route": "cuda", "source": source, "replaces": replaces,

@@ -1602,12 +1602,6 @@ def case_engine_mllama(inp):
 
     agents.reset_agent_cache()
     out["refused/no_cuda"] = np.array(refused(agents.get_auditor, (RuntimeError,)))
-    no_window = MllamaEngine("tiny-mllama", config, engine.params, tok, "cpu",
-                             dataclasses.replace(settings, lookahead=0))
-    out["refused/no_window"] = np.array(refused(lambda: no_window.generate(
-        "x", None, max_tokens=160, json_mode=True, json_schema="inspection")))
-    out["refused/sampled_free"] = np.array(refused(lambda: engine.generate(
-        "x", None, max_tokens=4, temperature=0.5)))
     out["refused/no_room"] = np.array(refused(lambda: engine.generate(
         "audit this part", None, max_tokens=max_cache - 1), (RuntimeError,)))
     out["health"] = np.array(engine.health_check())
@@ -1641,6 +1635,251 @@ def case_engine_mllama(inp):
     out["pipeline/raw"] = np.array(raw[-1] if raw else "")
     out["pipeline/backend"] = np.array(backend.name)
     return out
+
+
+def _decoder_config(text: str):
+    """A port DecoderConfig, f32, from the JSON of a JAX one's fields."""
+    from vis_tpu_torch.models.common.decoder import DecoderConfig
+
+    fields = json.loads(text)
+    for name in ("mrope_section", "rope_scaling"):
+        if fields[name] is not None:
+            fields[name] = tuple(tuple(v) if isinstance(v, list) else v for v in fields[name])
+    return DecoderConfig(**fields, dtype=torch.float32)
+
+
+def _subtree(inp, prefix):
+    """The entries of ``inp`` under ``prefix``, keyed by the rest of their path."""
+    return {k[len(prefix):]: inp[k] for k in inp.files if k.startswith(prefix)}
+
+
+def _recording_tokenizer(vocab):
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(vocab_size=vocab)
+    decode = tok.decode
+
+    def recording(ids):  # a request's final decode is the whole generation
+        tok.last = list(ids)
+        return decode(ids)
+
+    tok.decode = recording
+    return tok
+
+
+def _decode_loops(inp, out):
+    """The dense decode loops from one two-row prefill, mode by mode."""
+    from vis_tpu_torch.models.common.decoder import (
+        DecodeConstraint,
+        decode_loop_scan,
+        decode_loop_scan_constrained,
+        decode_loop_scan_sampled,
+        params_from_numpy,
+        prefill_scan,
+    )
+    from vis_tpu_torch.models.common.layers import KVCache, embed
+
+    ids = _t(inp["loops/ids"]).long()
+    prompts = [21, 34]
+    tables = {k: _t(inp[f"loops/tables/{k}"]) for k in ("token_ok", "token_trans",
+                                                         "cost_after")}
+    for profile in ("qwen", "llama"):
+        cfg = _decoder_config(str(inp[f"loops/{profile}/config"]))
+        for variant in ("f32", "int4", "int8"):
+            prefix = f"loops/{profile}/{variant}"
+            params = params_from_numpy(_subtree(inp, f"{prefix}/params/"), torch.float32)
+            steps = int(inp[f"{prefix}/steps"])
+            modes = [k.split("/")[-2] for k in inp.files
+                     if k.startswith(prefix + "/") and k.endswith("/exit")]
+            for mode in modes:
+                cache = KVCache.create(cfg.num_layers, len(prompts), 128, cfg.num_kv_heads,
+                                       cfg.head_dim_, cfg.dtype, "cpu")
+                positions = torch.arange(ids.shape[1], dtype=torch.int32)[None].expand(2, -1)
+                logits, cache = prefill_scan(cfg, params, embed(ids, params["embed_tokens"]),
+                                             positions, cache, prompts)
+                eos, b0, b1 = inp[f"{prefix}/{mode}/exit"].tolist()
+                kwargs = dict(eos_id=eos, budget=None if b0 < 0 else [b0, b1])
+                uniforms = iter(_t(inp["loops/uniforms"]))
+                draw = lambda shape: next(uniforms)  # noqa: E731
+                start = torch.tensor(prompts, dtype=torch.int32)
+                if mode.startswith("constrained"):
+                    con = DecodeConstraint(
+                        **tables, state=torch.full((2,), int(inp["loops/init_state"])),
+                        remaining=torch.tensor([160, 150]), active=torch.ones(2, dtype=torch.bool),
+                        min_remaining=torch.tensor([60, 150]))
+                    if mode == "constrained_sampled":
+                        kwargs.update(draw_uniforms=draw, temperature=0.7)
+                    tokens, last, cache, con = decode_loop_scan_constrained(
+                        cfg, params, logits, start, cache, con, steps, **kwargs)
+                    out[f"{prefix}/{mode}/state"] = con.state.numpy()
+                elif mode == "sampled":
+                    tokens, last, cache = decode_loop_scan_sampled(
+                        cfg, params, logits, start, cache, draw, torch.tensor([0.7, 0.0]), steps,
+                        **kwargs)
+                else:
+                    tokens, last, cache = decode_loop_scan(cfg, params, logits, start, cache,
+                                                           steps, **kwargs)
+                out[f"{prefix}/{mode}/tokens"] = tokens.numpy()
+                out[f"{prefix}/{mode}/logits"] = _np(last)
+                out[f"{prefix}/{mode}/lengths"] = cache.lengths.numpy()
+                out[f"{prefix}/{mode}/lengths_host"] = np.array(cache.lengths_host)
+
+
+def _decode_engines(inp, out):
+    """Engine.generate (Qwen2.5-VL with an image, Llama text) and the
+    Mllama loop engine in each mode, sampled requests on the JAX engines'
+    replayed uniforms; then each engine's health check."""
+
+    from vis_tpu_torch.models.llama.config import llama_tiny
+    from vis_tpu_torch.models.llama.model import from_jax_numpy as llama_params
+    from vis_tpu_torch.models.llama.mllama import from_jax_numpy as mllama_params
+    from vis_tpu_torch.models.qwen2_5_vl.config import Qwen25VLConfig
+    from vis_tpu_torch.models.qwen2_5_vl.model import from_jax_numpy as qwen_params
+    from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving.engine_mllama import MllamaEngine
+
+    vocab = int(inp["vocab"])
+    max_cache, _, max_image_dim = inp["settings"].tolist()
+    modes = json.loads(str(inp["engines/modes"]))
+    engines = {"qwen": ("greedy", "sampled", "schema", "schema_sampled"),
+               "llama": tuple(modes),
+               "mllama": ("greedy", "sampled", "schema", "schema_sampled")}
+    qwen_cfg = dataclasses.replace(Qwen25VLConfig.tiny(), image_token_id=261,
+                                   vision_start_token_id=259, vision_end_token_id=260,
+                                   eos_token_id=256)
+    llama_cfg = dataclasses.replace(llama_tiny(), vocab_size=vocab)
+    mllama_cfg = _config_from_json(json.loads(str(inp["engines/mllama_config"])))
+
+    def build(profile, tok, chunk):
+        settings = E.ServingSettings(max_cache_tokens=max_cache, decode_chunk=chunk, lookahead=0,
+                                     device_preprocess=False, min_json_tokens=0)
+        flat = _subtree(inp, f"engines/{profile}/params/")
+        if profile == "qwen":
+            return E.Engine("tiny-qwen", qwen_cfg, qwen_params(flat, qwen_cfg), tok, "cpu",
+                            settings)
+        if profile == "llama":
+            return E.Engine("tiny-llama", llama_cfg, {"text": llama_params(flat, llama_cfg)},
+                            tok, "cpu", settings)
+        return MllamaEngine("tiny-mllama", mllama_cfg, mllama_params(flat, mllama_cfg), tok,
+                            "cpu", settings)
+
+    for profile, names in engines.items():
+        for name in names:
+            with_image, chunk, kwargs = modes[name]
+            tok = _recording_tokenizer(vocab)
+            engine = build(profile, tok, chunk)
+            if kwargs["temperature"] > 0:
+                replay = iter(_t(inp["engines/uniforms"]))
+                engine._uniforms = lambda: (lambda shape: next(replay))
+            text = engine.generate(str(inp["prompt"]),
+                                   str(inp["engines/image"]) if with_image else None,
+                                   max_image_dim=max_image_dim, **kwargs)
+            out[f"engines/{profile}/{name}/text"] = np.array(text)
+            out[f"engines/{profile}/{name}/tokens"] = np.array(tok.last, np.int64)
+        if profile in ("llama", "mllama"):
+            engine = build(profile, _recording_tokenizer(vocab), 5)
+            out[f"health/{profile}"] = np.array([int(engine.health_check()),
+                                                 engine.last_decode_tokens])
+
+
+def _decode_chat(inp, out):
+    """Two turns on one session (the tokenizer's EOS, then an EOS the first
+    reply emits), the follow-up against a re-prefill, the session budget
+    and the engine's token counters."""
+    from vis_tpu_torch.models.llama.model import from_jax_numpy
+    from vis_tpu_torch.serving import engine as E
+
+    cfg = _decoder_config(str(inp["chat/config"]))
+    _, chat_tokens, _ = inp["settings"].tolist()
+    settings = E.ServingSettings(max_cache_tokens=512, decode_chunk=5, lookahead=0,
+                                 min_json_tokens=0)
+    tok = _recording_tokenizer(cfg.vocab_size)
+    engine = E.Engine("chat", cfg, {"text": from_jax_numpy(_subtree(inp, "chat/params/"), cfg)},
+                      tok, "cpu", settings)
+    system, turns = str(inp["chat/system"]), json.loads(str(inp["chat/turns"]))
+    replies = []  # the plain session's reply ids
+    for kind in ("plain", "eos"):
+        if kind == "eos":
+            tok.eos_id = int(inp["chat/eos"])
+        session = engine.chat_start(system)
+        total = engine.decode_tokens_total
+        for turn, question in enumerate(turns):
+            text = "".join(engine.chat_turn(session, question, max_tokens=chat_tokens))
+            key = f"chat/{kind}/turn{turn}"
+            out[f"{key}/text"] = np.array(text)
+            out[f"{key}/tokens"] = np.array(tok.last, np.int64)
+            out[f"{key}/state"] = np.array([session.position, session.cache.lengths_host[0]])
+            if int(session.cache.lengths[0]) != session.cache.lengths_host[0]:
+                raise AssertionError("the session's host cursor left its device cursor")
+            if kind == "plain":
+                replies.append(list(tok.last))
+        if kind == "plain":
+            out["chat/counts"] = np.array([engine.last_decode_tokens,
+                                           engine.decode_tokens_total - total])
+    tok.eos_id = 256
+    # The transcript as ids: a reply's bytes need not be valid UTF-8, and
+    # ids past the bytes decode to nothing, so its text would not re-encode
+    # to the ids the session holds.
+    transcript = (tok.encode(system) + tok.encode(f"\nUser: {turns[0]}\nAssistant:")
+                  + replies[0] + tok.encode(f"\nUser: {turns[1]}\nAssistant:"))
+    encode = tok.encode
+    tok.encode = lambda text: transcript if text == "<transcript>" else encode(text)
+    engine.generate("<transcript>", max_tokens=chat_tokens)
+    tok.encode = encode
+    out["chat/reprefill"] = np.array(tok.last, np.int64)
+    try:
+        next(engine.chat_turn(engine.chat_start("ctx"), "q" * 2000, max_tokens=500))
+        out["chat/budget"] = np.array("")
+    except RuntimeError as exc:
+        out["chat/budget"] = np.array(str(exc))
+
+
+def case_decode_paths(inp):
+    """The decode paths of the config's defaults: the dense loops, both
+    engines' requests and chat sessions."""
+    out = {}
+    _decode_loops(inp, out)
+    _decode_engines(inp, out)
+    _decode_chat(inp, out)
+    return out
+
+
+def case_decode_pipeline(inp):
+    """run_inspection on the small profiles with every decode setting at
+    the config's default, the process environment replaced by ``env``;
+    every backend call recorded with its exception, if any."""
+    os.environ.clear()
+    os.environ.update(json.loads(str(inp["env"])))
+    from vis_tpu_torch import agents
+    from vis_tpu_torch.orchestration.graph import run_inspection
+    from vis_tpu_torch.utils.config import get_config
+
+    get_config(reload=True)
+    agents.reset_agent_cache()
+    calls, errors, tokens = [], [], {}
+    for role, get in (("inspector", agents.get_inspector), ("auditor", agents.get_auditor)):
+        backend = get().backend
+        generate = backend.generate
+
+        def recording(*args, _role=role, _generate=generate, _engine=backend.engine, **kwargs):
+            calls.append(_role)
+            try:
+                text = _generate(*args, **kwargs)
+            except Exception as exc:
+                errors.append(f"{_role}: {exc!r}")
+                raise
+            tokens[_role] = tokens.get(_role, 0) + _engine.last_decode_tokens
+            return text
+
+        backend.generate = recording
+    state = run_inspection(str(inp["image"]), criticality="high", domain="general",
+                           user_notes="default decode")
+    return {"result": np.array(json.dumps({
+        "verdict": (state.get("safety_verdict") or {}).get("verdict"),
+        "inspector_failed": state["inspector_result"]["analysis_failed"],
+        "auditor_failed": state["auditor_result"]["analysis_failed"],
+        "errors": errors, "calls": sorted(set(calls)), "tokens": tokens,
+    }))}
 
 
 def main() -> int:

@@ -7,12 +7,16 @@ the place of ``lax.scan``, and ``_pick_layer`` hands each layer's int4
 weights to kernel A as a view of the stack.  Cache cursors are kept on the
 host too, so writing a chunk's K/V never reads the device.
 
-Decode over a dense per-request cache is ``decode_loop_lookahead``:
-schema-constrained windows of ``window`` tokens, one weight pass and one
-host sync per window.  Decode over the scheduler's paged KV pool is
-``decode_loop_paged`` (greedy) and ``decode_loop_paged_constrained`` (a
-per-row grammar over stacked tables, greedy or per-row Gumbel-sampled),
-one token per weight pass for every slot at once.
+Decode over a dense per-request cache is ``decode_loop_scan`` (greedy),
+``decode_loop_scan_sampled`` (Gumbel-max) and
+``decode_loop_scan_constrained`` (a grammar mask, greedy or sampled), one
+token per weight pass, and ``decode_loop_lookahead``: schema-constrained
+windows of ``window`` tokens, one weight pass and one host sync per
+window.  Decode over the scheduler's paged KV pool is ``decode_loop_paged``
+(greedy) and ``decode_loop_paged_constrained`` (a per-row grammar over
+stacked tables, greedy or per-row Gumbel-sampled), one token per weight
+pass for every slot at once.  Every token-per-pass loop runs on the
+``_eos_loop`` scaffold.
 """
 
 from __future__ import annotations
@@ -481,6 +485,35 @@ def gumbel_sample_token(logits: torch.Tensor, uniforms: torch.Tensor,
     return torch.where(temp > 0, sampled, greedy)
 
 
+class TokenPicker:
+    """The token choice of the decode loops, ``picker(logits) ->
+    token [b]``: argmax, or with ``draw_uniforms`` Gumbel-max at
+    ``temperature`` (one draw of the logits' shape a step), either under
+    the grammar mask of ``constraint`` when one is given, whose DFA then
+    advances with every pick (``picker.constraint`` holds the latest)."""
+
+    def __init__(self, constraint: Optional[DecodeConstraint] = None,
+                 draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
+                 temperature=None):
+        self.constraint = constraint
+        self.draw_uniforms = draw_uniforms
+        self.temperature = temperature
+
+    def __call__(self, logits: torch.Tensor) -> torch.Tensor:
+        if self.draw_uniforms is None:
+            def choose(m):
+                return torch.argmax(m, dim=-1)
+        else:
+            u = self.draw_uniforms(tuple(logits.shape))
+
+            def choose(m):
+                return gumbel_sample_token(m, u, self.temperature)
+        if self.constraint is None:
+            return choose(logits)
+        token, self.constraint = constrained_pick(logits, self.constraint, choose)
+        return token
+
+
 # ---------------------------------------------------------------------------
 # Lookahead decode
 # ---------------------------------------------------------------------------
@@ -535,26 +568,20 @@ def lookahead_decode(
     """
     b = first_logits.shape[0]
     device = first_logits.device
-    sampled = draw_uniforms is not None
     pos = torch.as_tensor(start_position, dtype=torch.int32, device=device).expand(b).clone()
     offs = torch.arange(window, dtype=torch.int32, device=device)
     fill = eos_id if eos_id is not None else 0
     tokens_out = torch.full((b, num_windows, window), fill, dtype=torch.int64)
     valid_out = torch.zeros((b, num_windows, window), dtype=torch.bool)
     done = torch.zeros((b,), dtype=torch.bool)
-    logits, con = first_logits, constraint
+    logits = first_logits
+    picker = TokenPicker(constraint, draw_uniforms, temperature)
 
     for win in range(num_windows):
         if eos_id is not None and bool(done.all()):
             break
-        if sampled:
-            u = draw_uniforms(tuple(logits.shape))
-            t0, con = constrained_pick(
-                logits, con, lambda m: gumbel_sample_token(m, u, temperature)
-            )
-        else:
-            t0, con = constrained_argmax(logits, con)
-
+        t0 = picker(logits)
+        con = picker.constraint
         state, remaining = con.state, con.remaining
         alive = torch.ones((b,), dtype=torch.bool, device=device)
         chain_toks, chain_ok = [], []
@@ -566,7 +593,7 @@ def lookahead_decode(
             state = torch.where(ok, forced_state[state.long()].to(state.dtype), state)
             remaining = remaining - ok.to(remaining.dtype)
             alive = ok
-        con = con._replace(state=state, remaining=remaining)
+        picker.constraint = con._replace(state=state, remaining=remaining)
         w_tokens = torch.stack([t0] + chain_toks, dim=1)
         w_valid = torch.stack([torch.ones_like(alive)] + chain_ok, dim=1)
 
@@ -588,7 +615,148 @@ def lookahead_decode(
             done = done | (h_valid & (h_tokens == eos_id)).any(dim=1)
         tokens_out[:, win] = h_tokens
         valid_out[:, win] = h_valid
-    return tokens_out, valid_out, logits, cache, con
+    return tokens_out, valid_out, logits, cache, picker.constraint
+
+
+# ---------------------------------------------------------------------------
+# Token-per-pass decode over a dense cache
+# ---------------------------------------------------------------------------
+
+def _eos_loop(slots: int, num_steps: int, eos_id: int, budget: Optional[Sequence[int]],
+              step_fn, device) -> torch.Tensor:
+    """The early-exit scaffold of every token-per-pass decode loop (dense,
+    paged, and the loop engine's): run ``step_fn(step_idx) -> token
+    [slots]`` until every row has emitted EOS or spent its per-row
+    ``budget`` (a host list, None for ``num_steps`` each; rows with budget
+    <= 0 start done: inactive scheduler slots), checking ``done`` on the
+    host once per step as the JAX loop's condition does.  Token slots past
+    a row's EOS read ``eos_id``.  Returns tokens [slots, num_steps].
+
+    CURSOR CONTRACT (the JAX package's): done rows keep stepping, their
+    recorded token masked to ``eos_id``, and their cursors still advance
+    past garbage writes; a caller chaining chunks rewinds them on the host."""
+    budget = [num_steps] * slots if budget is None else list(budget)
+    tokens = torch.full((slots, num_steps), eos_id, dtype=torch.int64, device=device)
+    budget_dev = torch.tensor(budget, dtype=torch.int64, device=device)
+    done = budget_dev <= 0
+    for step_idx in range(min(num_steps, max(budget))):
+        if bool(done.all()):
+            break
+        token = torch.where(done, eos_id, step_fn(step_idx))
+        tokens[:, step_idx] = token
+        done = done | (token == eos_id) | (step_idx + 1 >= budget_dev)
+    return tokens
+
+
+def _dense_token_step(
+    config: DecoderConfig, params: Params, token: torch.Tensor, pos_vec: torch.Tensor,
+    cache: KVCache, lengths: torch.Tensor,
+) -> torch.Tensor:
+    """One decode step for every row over a dense cache: embed the picked
+    token [b], run the stacked layers against each row's cached keys below
+    its device cursor ``lengths`` (the new token attends to itself out of
+    the cache), then write every layer's new K/V in place at (row,
+    lengths[row]) in one indexed store.  Returns the next logits [b,
+    vocab]; the caller advances ``lengths``.  No host cursor is read."""
+    b = token.shape[0]
+    positions = pos_vec[:, None]
+    if config.mrope_section is not None:
+        positions = positions[None].expand(3, b, 1)
+    cos, sin = _position_tables(config, positions)
+    x = embed(token[:, None], params["embed_tokens"])
+    kj = torch.arange(cache.k.shape[2], device=token.device)
+    cache_mask = torch.where(kj[None, :] < lengths[:, None], 0.0, -1e30).to(
+        torch.float32)[:, None, None, :]
+    stacked = params["layers_stacked"]
+    new_k, new_v = [], []
+    for idx in range(num_stacked_layers(stacked)):
+        x, k, v = _layer_body(
+            config, x, _pick_layer(stacked, idx), cos, sin, None,
+            cache.k[idx], cache.v[idx], cache_mask,
+        )
+        new_k.append(k[:, 0])
+        new_v.append(v[:, 0])
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    logits = lm_logits(config, params, x)[:, 0]
+    rows = torch.arange(b, device=token.device)
+    cursor = lengths.long()
+    cache.k[:, rows, cursor] = torch.stack(new_k).to(cache.k.dtype)
+    cache.v[:, rows, cursor] = torch.stack(new_v).to(cache.v.dtype)
+    return logits
+
+
+def _dense_loop(
+    config: DecoderConfig, params: Params, first_logits: torch.Tensor, start_position,
+    cache: KVCache, num_steps: int, eos_id: int, budget: Optional[Sequence[int]],
+    pick: Callable[[torch.Tensor], torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dense decode loops' body: ``pick(logits) -> token``, one
+    ``_dense_token_step`` a token on the ``_eos_loop`` scaffold.  The
+    cache is updated in place, its device cursors advanced by the steps
+    run (done rows too, as the cursor contract says) and its host mirror
+    set to match.  Returns (tokens [b, num_steps], last logits)."""
+    b = first_logits.shape[0]
+    device = first_logits.device
+    start = torch.as_tensor(start_position, dtype=torch.int32, device=device).expand(b)
+    carry = {"logits": first_logits, "lengths": cache.lengths, "steps": 0}
+
+    def step(step_idx):
+        token = pick(carry["logits"])
+        carry["logits"] = _dense_token_step(
+            config, params, token, start + step_idx, cache, carry["lengths"])
+        carry["lengths"] = carry["lengths"] + 1
+        carry["steps"] += 1
+        return token
+
+    tokens = _eos_loop(b, num_steps, eos_id, budget, step, device)
+    cache.lengths = carry["lengths"]
+    cache.lengths_host = [n + carry["steps"] for n in cache.lengths_host]
+    return tokens, carry["logits"]
+
+
+def decode_loop_scan(
+    config: DecoderConfig, params: Params, first_logits: torch.Tensor, start_position,
+    cache: KVCache, num_steps: int, *, eos_id: int, budget: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """Greedy decode of up to ``num_steps`` tokens per row over a dense
+    cache, ending once every row has emitted EOS or spent its host-side
+    ``budget``.  Returns (tokens [b, num_steps] on the device, last logits,
+    cache)."""
+    tokens, logits = _dense_loop(config, params, first_logits, start_position, cache,
+                                 num_steps, eos_id, budget, TokenPicker())
+    return tokens, logits, cache
+
+
+def decode_loop_scan_sampled(
+    config: DecoderConfig, params: Params, first_logits: torch.Tensor, start_position,
+    cache: KVCache, draw_uniforms: Callable[[Tuple[int, ...]], torch.Tensor], temperature,
+    num_steps: int, *, eos_id: int, budget: Optional[Sequence[int]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache]:
+    """``decode_loop_scan`` with Gumbel-max sampling at ``temperature``
+    (a scalar or [b]; rows at <= 0 stay exact-greedy), one draw of
+    ``draw_uniforms(logits.shape)`` a step, uniforms in (0, 1]."""
+    tokens, logits = _dense_loop(config, params, first_logits, start_position, cache,
+                                 num_steps, eos_id, budget,
+                                 TokenPicker(None, draw_uniforms, temperature))
+    return tokens, logits, cache
+
+
+def decode_loop_scan_constrained(
+    config: DecoderConfig, params: Params, first_logits: torch.Tensor, start_position,
+    cache: KVCache, constraint: DecodeConstraint, num_steps: int, *, eos_id: int,
+    budget: Optional[Sequence[int]] = None,
+    draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
+    temperature=None,
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, DecodeConstraint]:
+    """``decode_loop_scan`` under a grammar mask, the DFA carried across
+    steps and returned so that chunked callers continue it; with
+    ``draw_uniforms`` every pick is Gumbel-max sampled at ``temperature``
+    over the masked logits.  Returns (tokens, last logits, cache,
+    constraint)."""
+    picker = TokenPicker(constraint, draw_uniforms, temperature)
+    tokens, logits = _dense_loop(config, params, first_logits, start_position, cache,
+                                 num_steps, eos_id, budget, picker)
+    return tokens, logits, cache, picker.constraint
 
 
 # ---------------------------------------------------------------------------
@@ -638,30 +806,6 @@ def _paged_token_step(
     return logits
 
 
-def _eos_loop(slots: int, num_steps: int, eos_id: int, budget: Sequence[int],
-              step_fn, device) -> torch.Tensor:
-    """The early-exit scaffold of the paged decode loops: run
-    ``step_fn(step_idx) -> token [slots]`` until every row has emitted EOS
-    or spent its per-row ``budget`` (a host list; rows with budget <= 0
-    start done: inactive scheduler slots), checking ``done`` on the host
-    once per step as the JAX loop's condition does.  Token slots past a
-    row's EOS read ``eos_id``.  Returns tokens [slots, num_steps].
-
-    CURSOR CONTRACT (the JAX package's): done rows keep stepping, their
-    recorded token masked to ``eos_id``, and their cursors still advance
-    past garbage writes; a caller chaining chunks rewinds them on the host."""
-    tokens = torch.full((slots, num_steps), eos_id, dtype=torch.int64, device=device)
-    budget_dev = torch.tensor(list(budget), dtype=torch.int64, device=device)
-    done = budget_dev <= 0
-    for step_idx in range(min(num_steps, max(budget))):
-        if bool(done.all()):
-            break
-        token = torch.where(done, eos_id, step_fn(step_idx))
-        tokens[:, step_idx] = token
-        done = done | (token == eos_id) | (step_idx + 1 >= budget_dev)
-    return tokens
-
-
 def decode_loop_paged(
     config: DecoderConfig, params: Params, first_logits: torch.Tensor,
     start_position: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
@@ -676,9 +820,10 @@ def decode_loop_paged(
     start = torch.as_tensor(start_position, dtype=torch.int32,
                             device=first_logits.device).expand(slots)
     carry = {"logits": first_logits, "lengths": lengths}
+    picker = TokenPicker()
 
     def step(step_idx):
-        token = torch.argmax(carry["logits"], dim=-1)
+        token = picker(carry["logits"])
         carry["logits"] = _paged_token_step(
             config, params, token, start + step_idx, pool_k, pool_v, page_tables,
             carry["lengths"])
@@ -706,17 +851,11 @@ def decode_loop_paged_constrained(
     slots = page_tables.shape[0]
     start = torch.as_tensor(start_position, dtype=torch.int32,
                             device=first_logits.device).expand(slots)
-    carry = {"logits": first_logits, "lengths": lengths, "con": constraint}
+    carry = {"logits": first_logits, "lengths": lengths}
+    picker = TokenPicker(constraint, draw_uniforms, temperature)
 
     def step(step_idx):
-        logits = carry["logits"]
-        if draw_uniforms is not None:
-            u = draw_uniforms(tuple(logits.shape))
-            token, con = constrained_pick(
-                logits, carry["con"], lambda m: gumbel_sample_token(m, u, temperature))
-        else:
-            token, con = constrained_argmax(logits, carry["con"])
-        carry["con"] = con
+        token = picker(carry["logits"])
         carry["logits"] = _paged_token_step(
             config, params, token, start + step_idx, pool_k, pool_v, page_tables,
             carry["lengths"])
@@ -724,17 +863,21 @@ def decode_loop_paged_constrained(
         return token
 
     tokens = _eos_loop(slots, num_steps, eos_id, budget, step, first_logits.device)
-    return tokens, carry["logits"], pool_k, pool_v, carry["lengths"], carry["con"]
+    return tokens, carry["logits"], pool_k, pool_v, carry["lengths"], picker.constraint
 
 
 __all__ = [
     "DecodeConstraint",
     "DecoderConfig",
+    "TokenPicker",
     "constrained_argmax",
     "constrained_pick",
     "decode_loop_lookahead",
     "decode_loop_paged",
     "decode_loop_paged_constrained",
+    "decode_loop_scan",
+    "decode_loop_scan_constrained",
+    "decode_loop_scan_sampled",
     "extend_scan",
     "fuse_stacked_projections",
     "gumbel_sample_token",

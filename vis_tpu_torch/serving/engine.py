@@ -1,8 +1,11 @@
 """Inference engine: the Qwen2.5-VL inspector (preprocess -> vision encode
--> prefill -> schema-constrained lookahead decode) and text-only decoders
-such as the Llama-3.1-8B explainer (prefill -> decode, unbatched or through
-the continuous-batching scheduler).  ``build_engine`` routes an Mllama
-auditor to ``serving/engine_mllama.py``.
+-> prefill -> decode) and text-only decoders such as the Llama-3.1-8B
+explainer (prefill -> decode, unbatched or through the continuous-batching
+scheduler, and KV-cached chat sessions).  Unbatched decode is dispatched
+as the JAX engine dispatches it: schema-constrained lookahead windows with
+a 2..16 window, else fused chunks of ``decode_chunk`` token-a-pass steps,
+under a grammar or free-form, greedy or Gumbel-sampled.  ``build_engine``
+routes an Mllama auditor to ``serving/engine_mllama.py``.
 
 Counterpart of ``vis_tpu/serving/engine.py`` for these two paths.  The
 engine core takes its serving settings as arguments (``ServingSettings``);
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +45,9 @@ from vis_tpu_torch.models.common.decoder import (
     DecodeConstraint,
     DecoderConfig,
     decode_loop_lookahead,
+    decode_loop_scan,
+    decode_loop_scan_constrained,
+    decode_loop_scan_sampled,
     extend_scan,
     fuse_stacked_projections,
     init_decoder_params,
@@ -97,6 +104,103 @@ def load_constraint_tables(tokenizer, vocab_size: int, schema: Optional[str],
     )
 
 
+def request_uniforms(device):
+    """A request's Gumbel uniforms in (0, 1], ``draw(shape)``, from a
+    device generator seeded 0 (the JAX engines seed every request with
+    PRNGKey(0) too, folded per chunk, so the two draw other values)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+
+    def draw(shape):
+        return torch.rand(shape, generator=gen, device=device).clamp_min_(1e-20)
+
+    return draw
+
+
+def request_constraint(json_tables, max_tokens: int, floor: int, device) -> DecodeConstraint:
+    """One request's grammar state at the DFA's start: ``max_tokens`` to
+    spend, the JSON root's close blocked until ``floor`` tokens (at most
+    max_tokens - 32)."""
+    ok_t, trans_t, cost_t, cls_t, tables = json_tables
+    min_tok = max(min(max(floor, 0), max_tokens - 32), 0)
+
+    def full(value, dtype):
+        return torch.full((1,), value, dtype=dtype, device=device)
+
+    return DecodeConstraint(
+        token_ok=ok_t, token_trans=trans_t, cost_after=cost_t, class_of=cls_t,
+        state=full(tables.init_state, torch.int64), remaining=full(max_tokens, torch.int64),
+        active=full(True, torch.bool), min_remaining=full(max_tokens - min_tok, torch.int64),
+    )
+
+
+def use_lookahead(window: int, json_tables) -> bool:
+    """Constrained decode takes lookahead windows for a 2..16 window over
+    tables with forced runs, else one token per pass."""
+    return 2 <= window <= 16 and json_tables[-1].forced_token is not None
+
+
+class TokenStream:
+    """A request's generated ids and the text streamed from them so far:
+    ``progress()`` yields what the ids added since the last call decode to
+    (never a trailing partial character), ``finish()`` the rest, from one
+    last decode of the whole generation."""
+
+    def __init__(self, tokenizer):
+        self.tokenizer = tokenizer
+        self.generated: List[int] = []
+        self.emitted = ""
+
+    def progress(self) -> Iterator[str]:
+        text = self.tokenizer.decode(self.generated)
+        if len(text) > len(self.emitted) and not text.endswith("�"):
+            chunk, self.emitted = text[len(self.emitted):], text
+            yield chunk
+
+    def finish(self) -> Iterator[str]:
+        final = self.tokenizer.decode(self.generated)
+        if len(final) > len(self.emitted):
+            yield final[len(self.emitted):]
+
+
+def chunked_decode(run_chunk, start: int, budget: int, chunk: int, eos_id: int,
+                   stream: TokenStream) -> Iterator[str]:
+    """The host side of fused chunked decode: ``run_chunk(position, steps)
+    -> tokens [1, steps]`` for chunks of up to ``chunk`` steps until EOS or
+    ``budget`` tokens, each chunk's tokens before EOS added to ``stream``.
+    A chunk without EOS ran all its steps, so the next one starts
+    ``steps`` further on."""
+    remaining, pos, done = budget, start, False
+    while remaining > 0 and not done:
+        steps = min(chunk, remaining)
+        for token_id in run_chunk(pos, steps)[0].tolist():
+            if token_id == eos_id:
+                done = True
+                break
+            stream.generated.append(token_id)
+        yield from stream.progress()
+        remaining -= steps
+        pos += steps
+
+
+def window_tokens(tokens, valid, eos_id: int, remaining: int, generated: List[int]):
+    """A lookahead call's windows ([n][window] token and valid lists) onto
+    ``generated``: valid tokens in order until EOS or ``remaining`` of
+    them.  Returns (tokens emitted, done)."""
+    emitted_n = 0
+    for win_tokens, win_valid in zip(tokens, valid):
+        for token_id, ok in zip(win_tokens, win_valid):
+            if not ok:
+                break
+            emitted_n += 1
+            if token_id == eos_id:
+                return emitted_n, True
+            generated.append(token_id)
+            if emitted_n >= remaining:  # the budget ends mid-window
+                return emitted_n, True
+    return emitted_n, False
+
+
 @dataclasses.dataclass(frozen=True)
 class ServingSettings:
     """What the engine core takes instead of reading the app config."""
@@ -133,6 +237,16 @@ class ServingSettings:
         )
 
 
+@dataclasses.dataclass
+class ChatSession:
+    """A KV-cached conversation (``Engine.chat_start``): its cache, the
+    last logits, and the next token's position."""
+
+    cache: KVCache
+    logits: Any
+    position: int
+
+
 class Engine:
     """One model on one torch device: a Qwen2.5-VL model (``config`` a
     ``Qwen25VLConfig``) or a text-only decoder (a ``DecoderConfig``)."""
@@ -154,6 +268,9 @@ class Engine:
         self.scheduler = None
         self.last_decode_tokens: Optional[int] = None
         self.decode_tokens_total = 0
+        # Seconds inside the decode block of generate (ended on the
+        # device's clock), the reference's telemetry twin.
+        self.decode_device_s_total = 0.0
 
     def _sync(self) -> None:
         """End a span on the device's clock, not the host's enqueue."""
@@ -168,6 +285,65 @@ class Engine:
         if self._json[schema] is None and schema is not None:
             return self._json_tables(None)
         return self._json[schema]
+
+    # -- KV-cached chat sessions -------------------------------------------
+    def chat_start(self, system_context: str) -> "ChatSession":
+        """Open a conversation: the system context prefills once into a
+        session cache of ``max_cache_tokens``, which every turn extends."""
+        with self._lock:
+            cache, logits, next_pos, _, _ = self._prefill_request(
+                system_context, None, max_tokens=1, max_image_dim=0, full_cache=True)
+        return ChatSession(cache=cache, logits=logits, position=next_pos)
+
+    def chat_turn(self, session: "ChatSession", question: str,
+                  max_tokens: int = 512) -> Iterator[str]:
+        """One user turn: the question, padded to a bucket of 128 * 2^k,
+        extends the session cache, then the reply decodes greedily in fused
+        chunks.  The reply's K/V stay in the cache (the cursor rewound past
+        EOS and what followed it), so the next turn sees the whole
+        conversation.  Raises RuntimeError when the padded turn and the
+        reply would not fit the session's cache."""
+        turn_ids = self.tokenizer.encode(f"\nUser: {question}\nAssistant:")
+        seq_len = len(turn_ids)
+        bucket = 128
+        while bucket < seq_len:
+            bucket *= 2
+        # Against the padded bucket: extend_scan writes the whole chunk.
+        budget = self.settings.max_cache_tokens - max_tokens - 1
+        used = session.cache.lengths_host[0]
+        if used + bucket > budget:
+            raise RuntimeError(f"chat session KV budget exhausted ({used} used of {budget})")
+        padded = torch.zeros((1, bucket), dtype=torch.int64)
+        padded[0, :seq_len] = torch.tensor(turn_ids)
+        positions = (torch.arange(bucket, dtype=torch.int32)[None]
+                     + session.position).to(self.device)
+        eos, stream = self.tokenizer.eos_id, TokenStream(self.tokenizer)
+        with self._lock:
+            params = self.params["text"]
+            cache = session.cache
+            logits, cache = extend_scan(
+                self.text_config, params,
+                embed(padded.to(self.device), params["embed_tokens"]), positions, cache,
+                [seq_len])
+            session.position += seq_len
+            carry = {"logits": logits}
+
+            def run(pos, steps):
+                chunk_start = cache.lengths_host[0]
+                tokens, carry["logits"], _ = decode_loop_scan(
+                    self.text_config, params, carry["logits"], pos, cache, steps, eos_id=eos)
+                row = tokens[0].tolist()
+                if eos in row:  # the next turn overwrites EOS and what followed it
+                    cache.set_lengths([chunk_start + row.index(eos)])
+                return tokens
+
+            yield from chunked_decode(run, session.position, max_tokens,
+                                      self.settings.decode_chunk, eos, stream)
+            session.position += len(stream.generated)
+            session.cache, session.logits = cache, carry["logits"]
+            self.last_decode_tokens = len(stream.generated)
+            self.decode_tokens_total += len(stream.generated)
+        yield from stream.finish()
 
     # -- vision ----------------------------------------------------------
     def _preprocess(self, image_path, max_image_dim) -> DeviceImagePatches:
@@ -222,12 +398,13 @@ class Engine:
         return min(cap, ((need + 511) // 512) * 512)
 
     def _prefill_request(self, prompt, image, *, max_tokens, max_image_dim,
-                         prompt_only_cache: bool = False):
+                         prompt_only_cache: bool = False, full_cache: bool = False):
         """Vision encode + prefill into a fresh batch-1 cache; returns (cache,
         first_logits, next_position, kv_len, ids).  The cache is sized to the
-        request's budget, or with ``prompt_only_cache`` (a scheduler hand-off,
+        request's budget, with ``prompt_only_cache`` (a scheduler hand-off,
         whose decode KV lives in the page pool) to the page-aligned prompt
-        bucket alone."""
+        bucket alone, or with ``full_cache`` (a chat session, which every
+        later turn extends) to the whole ``max_cache_tokens``."""
         tc = self.text_config
         patches = vision_embeds = None
         if image is not None and self.vlm_config is not None:
@@ -268,6 +445,8 @@ class Engine:
         if pool is not None:
             page = max(128, pool.page_size)
             cache_len = min(cap, -(-bucket // page) * page)
+        elif full_cache:
+            cache_len = cap
         else:
             cache_len = self._request_cache_len(bucket, max_tokens, cap)
 
@@ -298,9 +477,15 @@ class Engine:
         return cache, logits, next_pos, seq_len, ids
 
     # -- decode ----------------------------------------------------------
+    def _uniforms(self):
+        return request_uniforms(self.device)
+
     def _generate_locked(self, prompt, image, *, max_tokens, temperature,
                          max_image_dim, json_schema: Optional[str],
                          json_mode: bool, min_tokens: Optional[int]) -> Iterator[str]:
+        """Prefill, then decode as the JAX engine dispatches: a grammar in
+        lookahead windows (a 2..16 window) or in fused chunks of
+        ``decode_chunk`` steps, else greedy or Gumbel-sampled chunks."""
         params = self.params["text"]
         json_tables = self._json_tables(json_schema) if json_mode else None
         if json_tables is not None:
@@ -308,122 +493,79 @@ class Engine:
         cache, logits, next_pos, _, _ = self._prefill_request(
             prompt, image, max_tokens=max_tokens, max_image_dim=max_image_dim
         )
-        eos = self.tokenizer.eos_id
-        generated: List[int] = []
-        emitted = ""
-
-        def emit_progress() -> Iterator[str]:
-            nonlocal emitted
-            text = self.tokenizer.decode(generated)
-            if len(text) > len(emitted) and not text.endswith("�"):
-                chunk, emitted = text[len(emitted):], text
-                yield chunk
-
+        eos, stream = self.tokenizer.eos_id, TokenStream(self.tokenizer)
+        draw = self._uniforms() if temperature > 0.0 else None
+        decode_start = time.perf_counter()
         with span("engine.decode", logger):
+            constraint = None
             if json_tables is not None:
+                floor = min_tokens if min_tokens is not None else self.settings.min_json_tokens
+                constraint = request_constraint(json_tables, max_tokens, floor, self.device)
+            if constraint is not None and use_lookahead(self.settings.lookahead, json_tables):
                 yield from self._lookahead_decode(
-                    params, logits, cache, next_pos, json_tables, max_tokens,
-                    temperature, min_tokens, generated, emit_progress,
-                )
-            elif temperature <= 0.0:
-                yield from self._greedy_chunk_loop(
-                    params, logits, cache, next_pos, generated, emit_progress, max_tokens,
+                    params, logits, cache, next_pos, json_tables, constraint, max_tokens,
+                    draw, temperature, stream,
                 )
             else:
-                raise NotImplementedError(
-                    "free-form sampled decode is not ported yet; use a JSON "
-                    "schema request or temperature 0"
-                )
+                run = self._chunk_runner(params, logits, cache, constraint, draw, temperature)
+                yield from chunked_decode(run, next_pos, max_tokens, self.settings.decode_chunk,
+                                          eos, stream)
             self._sync()
-        self.last_decode_tokens = len(generated)
-        self.decode_tokens_total += len(generated)
-        final = self.tokenizer.decode(generated)
-        if len(final) > len(emitted):
-            yield final[len(emitted):]
+        self.decode_device_s_total += time.perf_counter() - decode_start
+        self.last_decode_tokens = len(stream.generated)
+        self.decode_tokens_total += len(stream.generated)
+        yield from stream.finish()
 
-    def _lookahead_decode(self, params, logits, cache, next_pos, json_tables,
-                          max_tokens, temperature, min_tokens, generated,
-                          emit_progress) -> Iterator[str]:
+    def _lookahead_decode(self, params, logits, cache, next_pos, json_tables, constraint,
+                          max_tokens, draw, temperature, stream: TokenStream) -> Iterator[str]:
         """Schema-constrained decode, ``lookahead`` tokens per weight pass,
-        sampled (Gumbel-max from a per-request device generator) when
-        temperature > 0, greedy otherwise."""
-        tc = self.text_config
-        ok_t, trans_t, cost_t, cls_t, tables = json_tables
-        window = self.settings.lookahead
-        if not (2 <= window <= 16 and tables.forced_token is not None):
-            raise NotImplementedError(
-                "constrained decode without a 2..16-token lookahead window is not ported yet"
-            )
-        floor = min_tokens if min_tokens is not None else self.settings.min_json_tokens
-        min_tok = min(max(floor, 0), max_tokens - 32)
-        dev = self.device
-
-        def full(value, dtype):
-            return torch.full((1,), value, dtype=dtype, device=dev)
-
-        constraint = DecodeConstraint(
-            token_ok=ok_t, token_trans=trans_t, cost_after=cost_t, class_of=cls_t,
-            state=full(tables.init_state, torch.int64),
-            remaining=full(max_tokens, torch.int64),
-            active=full(True, torch.bool),
-            min_remaining=full(max_tokens - max(min_tok, 0), torch.int64),
-        )
-        forced_tok = torch.from_numpy(tables.forced_token).to(dev)
-        forced_state = torch.from_numpy(tables.forced_state).to(dev)
-        draw = None
-        if temperature > 0.0:
-            # Every request samples from seed 0, as the JAX engine's PRNGKey(0).
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(0)
-
-            def draw(shape):
-                return torch.rand(shape, generator=gen, device=dev).clamp_min_(1e-20)
-
+        sampled (Gumbel-max from ``draw``) when temperature > 0, greedy
+        otherwise."""
+        tables = json_tables[-1]
+        forced_tok = torch.from_numpy(tables.forced_token).to(self.device)
+        forced_state = torch.from_numpy(tables.forced_state).to(self.device)
+        eos = self.tokenizer.eos_id
         remaining, step0, done = max_tokens, 0, False
         while remaining > 0 and not done:
             tokens, valid, logits, cache, constraint = decode_loop_lookahead(
-                tc, params, logits, next_pos + step0, cache, constraint,
+                self.text_config, params, logits, next_pos + step0, cache, constraint,
                 forced_tok, forced_state, num_windows=self.settings.decode_chunk,
-                window=window, draw_uniforms=draw, temperature=temperature,
-                eos_id=self.tokenizer.eos_id,
+                window=self.settings.lookahead, draw_uniforms=draw, temperature=temperature,
+                eos_id=eos,
             )
-            emitted_n = 0
-            for win_tokens, win_valid in zip(tokens[0].tolist(), valid[0].tolist()):
-                for token_id, ok in zip(win_tokens, win_valid):
-                    if not ok:
-                        break
-                    emitted_n += 1
-                    if token_id == self.tokenizer.eos_id:
-                        done = True
-                        break
-                    generated.append(token_id)
-                    if emitted_n >= remaining:
-                        done = True
-                        break
-                if done:
-                    break
-            yield from emit_progress()
+            emitted_n, done = window_tokens(tokens[0].tolist(), valid[0].tolist(), eos,
+                                            remaining, stream.generated)
+            yield from stream.progress()
             remaining -= emitted_n
             step0 += emitted_n
 
-    def _greedy_chunk_loop(self, params, logits, cache, start_pos, generated,
-                           emit_progress, budget) -> Iterator[str]:
-        """Free-form greedy decode, one token per pass, host EOS check per
-        token (the health check's path)."""
-        tc = self.text_config
-        for step in range(budget):
-            token = torch.argmax(logits, dim=-1)
-            token_id = int(token[0])
-            if token_id == self.tokenizer.eos_id:
-                break
-            generated.append(token_id)
-            pos = torch.full((1, 1), start_pos + step, dtype=torch.int32, device=self.device)
-            positions = pos[None].expand(3, 1, 1) if tc.mrope_section is not None else pos
-            logits, cache = extend_scan(
-                tc, params, embed(token[:, None], params["embed_tokens"]),
-                positions, cache, [1],
-            )
-            yield from emit_progress()
+    def _chunk_runner(self, params, logits, cache: KVCache, constraint=None, draw=None,
+                      temperature: float = 0.0):
+        """``run(position, steps) -> tokens [1, steps]``: one fused chunk of
+        the loop a request takes (``decode_loop_scan_constrained`` under a
+        grammar, ``decode_loop_scan_sampled`` with ``draw``, else greedy
+        ``decode_loop_scan``), each chunk chained to the last through its
+        final logits, the cache and the DFA."""
+        tc, eos = self.text_config, self.tokenizer.eos_id
+        carry = {"logits": logits, "con": constraint}
+
+        def run(pos, steps):
+            if carry["con"] is not None:
+                sampling = ({} if draw is None
+                            else {"draw_uniforms": draw, "temperature": temperature})
+                tokens, carry["logits"], _, carry["con"] = decode_loop_scan_constrained(
+                    tc, params, carry["logits"], pos, cache, carry["con"], steps, eos_id=eos,
+                    **sampling)
+            elif draw is not None:
+                tokens, carry["logits"], _ = decode_loop_scan_sampled(
+                    tc, params, carry["logits"], pos, cache, draw, temperature, steps,
+                    eos_id=eos)
+            else:
+                tokens, carry["logits"], _ = decode_loop_scan(
+                    tc, params, carry["logits"], pos, cache, steps, eos_id=eos)
+            return tokens
+
+        return run
 
     # -- continuous batching ---------------------------------------------
     def attach_scheduler(self, num_slots: Optional[int] = None,
@@ -949,9 +1091,11 @@ def get_engine_backend(role: str, model_name: str, device, seed: int = 0) -> Eng
 
 
 __all__ = [
+    "ChatSession",
     "Engine",
     "EngineBackend",
     "ServingSettings",
+    "TokenStream",
     "build_engine",
     "build_small_engine",
     "build_small_text_engine",

@@ -15,25 +15,40 @@ provide:
   _vocab_size
 
 The engine takes its serving settings as arguments (``ServingSettings``)
-and keeps every tensor on its ``device``.  Like the port's Qwen engine it
-decodes free-form greedy and schema-constrained windows (greedy or
-Gumbel-sampled from a per-request device generator seeded 0); constrained
-decode without a window and free-form sampled decode raise
-``NotImplementedError``.
+and keeps every tensor on its ``device``.  It decodes as the reference's
+does: schema-constrained lookahead windows (a 2..16 window), else one
+token a pass in fused chunks of ``decode_chunk`` steps, under a grammar
+or free-form, greedy or Gumbel-sampled from a per-request device
+generator seeded 0.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from vis_tpu_torch.models.common.decoder import DecodeConstraint, lookahead_decode
+from vis_tpu_torch.models.common.decoder import (
+    TokenPicker,
+    _eos_loop,
+    lookahead_decode,
+)
 from vis_tpu_torch.models.common.layers import KVCache, causal_mask, length_mask
-from vis_tpu_torch.serving.engine import EngineBackend, ServingSettings, load_constraint_tables
+from vis_tpu_torch.serving.engine import (
+    EngineBackend,
+    ServingSettings,
+    TokenStream,
+    chunked_decode,
+    load_constraint_tables,
+    request_constraint,
+    request_uniforms,
+    use_lookahead,
+    window_tokens,
+)
 from vis_tpu_torch.utils.logger import setup_logger, span
 
 logger = setup_logger(__name__, level="INFO", component="LOOP_ENGINE")
@@ -54,6 +69,9 @@ class LoopDecodeEngine:
         self._json = {}
         self.last_decode_tokens: Optional[int] = None
         self.decode_tokens_total = 0
+        # Seconds inside the decode block of generate (ended on the
+        # device's clock), the reference's telemetry twin.
+        self.decode_device_s_total = 0.0
         # What a request's kernel launches follow from: its prefill bucket
         # and its decode windows (or greedy steps).
         self.last_prefill_bucket: Optional[int] = None
@@ -97,16 +115,7 @@ class LoopDecodeEngine:
         return self._json[schema]
 
     def _uniforms(self) -> Callable[[Tuple[int, ...]], torch.Tensor]:
-        """A request's Gumbel uniforms in (0, 1], drawn from a device
-        generator seeded 0 (the reference seeds every request with
-        PRNGKey(0) too, folded per chunk, so the two draw other values)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(0)
-
-        def draw(shape):
-            return torch.rand(shape, generator=gen, device=self.device).clamp_min_(1e-20)
-
-        return draw
+        return request_uniforms(self.device)
 
     # -- prefill and decode ---------------------------------------------------
     def _prefill(self, embeds, positions, aux, cache: KVCache, seq_len: int) -> torch.Tensor:
@@ -120,21 +129,27 @@ class LoopDecodeEngine:
         cache.set_lengths([seq_len])
         return self._model_logits(hidden[:, seq_len - 1:seq_len])[:, 0]
 
-    def _decode_chunk(self, logits, aux, cache: KVCache, start: int, steps: int):
-        """Free-form greedy decode of up to ``steps`` tokens, one pass and
-        one host read a token, ending at EOS.  Returns (tokens, logits)."""
-        tokens: List[int] = []
-        for step in range(steps):
-            token = torch.argmax(logits, dim=-1)
-            tokens.append(int(token[0]))
-            if tokens[-1] == self.tokenizer.eos_id:
-                break
-            positions = torch.full((1, 1), start + step, dtype=torch.int32, device=self.device)
-            hidden, cache = self._model_forward(
+    def _decode_chunk(self, logits, aux, cache: KVCache, start: int, steps: int,
+                      pick: Callable[[torch.Tensor], torch.Tensor]):
+        """Up to ``steps`` tokens, one pass each, ``pick(logits) -> token``
+        (greedy, sampled or grammar-masked), on the ``_eos_loop`` scaffold:
+        the step that picks EOS still runs its pass, as the reference's
+        loop body does, and the chunk ends there.  Returns (tokens [1,
+        steps], last logits)."""
+        carry = {"logits": logits}
+
+        def step(step_idx):
+            token = pick(carry["logits"])
+            positions = torch.full((1, 1), start + step_idx, dtype=torch.int32,
+                                   device=self.device)
+            hidden, _ = self._model_forward(
                 self._embed_tokens(token[:, None]), positions, aux, cache, cache.decode_mask())
-            logits = self._model_logits(hidden)[:, 0]
+            carry["logits"] = self._model_logits(hidden)[:, 0]
             self.last_decode_passes += 1
-        return tokens, logits
+            return token
+
+        tokens = _eos_loop(1, steps, self.tokenizer.eos_id, None, step, self.device)
+        return tokens, carry["logits"]
 
     def _window_extend(self, aux):
         """``lookahead_decode``'s pass for one row: the window's K/V written
@@ -208,91 +223,55 @@ class LoopDecodeEngine:
             logits = self._prefill(embeds, positions, aux, cache, seq_len)
             self._sync()
 
-        generated: List[int] = []
-        emitted = ""
-
-        def emit_progress() -> Iterator[str]:
-            nonlocal emitted
-            text = self.tokenizer.decode(generated)
-            if len(text) > len(emitted) and not text.endswith("�"):
-                chunk, emitted = text[len(emitted):], text
-                yield chunk
-
+        stream = TokenStream(self.tokenizer)
+        draw = self._uniforms() if temperature > 0.0 else None
+        decode_start = time.perf_counter()
         with span(f"{self.span_prefix}.decode", logger):
+            constraint = None
             if json_tables is not None:
+                floor = min_tokens if min_tokens is not None else self.settings.min_json_tokens
+                constraint = request_constraint(json_tables, max_tokens, floor, self.device)
+            if constraint is not None and use_lookahead(self.settings.lookahead, json_tables):
                 yield from self._constrained_decode(
-                    logits, aux, cache, seq_len, json_tables, max_tokens, temperature,
-                    min_tokens, generated, emit_progress)
-            elif temperature > 0.0:
-                raise NotImplementedError(
-                    "free-form sampled decode is not ported yet; use a JSON schema "
-                    "request or temperature 0")
+                    logits, aux, cache, seq_len, json_tables, constraint, max_tokens, draw,
+                    temperature, stream)
             else:
-                remaining, pos = max_tokens, seq_len
-                while remaining > 0:
-                    steps = min(self.settings.decode_chunk, remaining)
-                    tokens, logits = self._decode_chunk(logits, aux, cache, pos, steps)
-                    generated.extend(t for t in tokens if t != self.tokenizer.eos_id)
-                    yield from emit_progress()
-                    if self.tokenizer.eos_id in tokens:
-                        break
-                    remaining -= steps
-                    pos += steps
-            self._sync()
-        self.last_decode_tokens = len(generated)
-        self.decode_tokens_total += len(generated)
-        final = self.tokenizer.decode(generated)
-        if len(final) > len(emitted):
-            yield final[len(emitted):]
+                carry = {"logits": logits}
+                pick = TokenPicker(constraint, draw, temperature)
 
-    def _constrained_decode(self, logits, aux, cache, seq_len, json_tables, max_tokens,
-                            temperature, min_tokens, generated, emit_progress) -> Iterator[str]:
+                def run(pos, steps):
+                    tokens, carry["logits"] = self._decode_chunk(
+                        carry["logits"], aux, cache, pos, steps, pick)
+                    return tokens
+
+                yield from chunked_decode(run, seq_len, max_tokens, self.settings.decode_chunk,
+                                          self.tokenizer.eos_id, stream)
+            self._sync()
+        self.decode_device_s_total += time.perf_counter() - decode_start
+        self.last_decode_tokens = len(stream.generated)
+        self.decode_tokens_total += len(stream.generated)
+        yield from stream.finish()
+
+    def _constrained_decode(self, logits, aux, cache, seq_len, json_tables, constraint,
+                            max_tokens, draw, temperature,
+                            stream: TokenStream) -> Iterator[str]:
         """Schema-constrained decode in lookahead windows of
         ``settings.lookahead`` tokens, ``settings.decode_chunk`` windows a
         call, until EOS or the budget."""
-        ok_t, trans_t, cost_t, cls_t, tables = json_tables
-        window = self.settings.lookahead
-        if not (2 <= window <= 16 and tables.forced_token is not None):
-            raise NotImplementedError(
-                "constrained decode without a 2..16-token lookahead window is not ported yet")
-        floor = min_tokens if min_tokens is not None else self.settings.min_json_tokens
-        min_tok = min(max(floor, 0), max_tokens - 32)
-
-        def full(value, dtype):
-            return torch.full((1,), value, dtype=dtype, device=self.device)
-
-        constraint = DecodeConstraint(
-            token_ok=ok_t, token_trans=trans_t, cost_after=cost_t, class_of=cls_t,
-            state=full(tables.init_state, torch.int64), remaining=full(max_tokens, torch.int64),
-            active=full(True, torch.bool),
-            min_remaining=full(max_tokens - max(min_tok, 0), torch.int64),
-        )
+        tables = json_tables[-1]
         forced_tok = torch.from_numpy(tables.forced_token).to(self.device)
         forced_state = torch.from_numpy(tables.forced_state).to(self.device)
-        draw = self._uniforms() if temperature > 0.0 else None
         eos = self.tokenizer.eos_id
         remaining, pos, done = max_tokens, seq_len, False
         extend = self._window_extend(aux)
         while remaining > 0 and not done:
             tokens, valid, logits, cache, constraint = lookahead_decode(
                 logits, pos, cache, constraint, forced_tok, forced_state,
-                self.settings.decode_chunk, window, extend, draw, temperature, eos)
-            emitted_n = 0
-            for win_tokens, win_valid in zip(tokens[0].tolist(), valid[0].tolist()):
-                for token_id, ok in zip(win_tokens, win_valid):
-                    if not ok:
-                        break
-                    emitted_n += 1
-                    if token_id == eos:
-                        done = True
-                        break
-                    generated.append(token_id)
-                    if emitted_n >= remaining:  # the budget ends mid-window
-                        done = True
-                        break
-                if done:
-                    break
-            yield from emit_progress()
+                self.settings.decode_chunk, self.settings.lookahead, extend, draw,
+                temperature, eos)
+            emitted_n, done = window_tokens(tokens[0].tolist(), valid[0].tolist(), eos,
+                                            remaining, stream.generated)
+            yield from stream.progress()
             remaining -= emitted_n
             pos += emitted_n
 
