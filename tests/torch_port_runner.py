@@ -1882,6 +1882,156 @@ def case_decode_pipeline(inp):
     }))}
 
 
+def case_trace(inp):
+    """The program's span records on the tiny text profile: lookahead
+    requests (greedy and sampled) with no profiler and under a CPU
+    profiler, beside the benchmark's own counts (its ``Recorder``); a chat
+    turn and the engine's counters; a scheduler run of three requests."""
+    import threading
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_torch.harness.record import Recorder
+    from vis_tpu_torch.models.llama.config import llama_tiny
+    from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving import scheduler as S
+    from vis_tpu_torch.utils.logger import get_timings, get_trace
+
+    cfg = dataclasses.replace(llama_tiny(), vocab_size=512)
+    settings = E.ServingSettings(**json.loads(str(inp["settings"])))
+    schema = dict(max_tokens=64, json_mode=True, json_schema="inspection")
+    engine = E.build_small_text_engine("trace", "cpu", 3, config=cfg, settings=settings)
+    recorder = Recorder()
+    recorder.install(E, S)
+    recorder.watch_engine(engine)
+    out = {}
+    get_timings(reset=True)
+    engine.generate("warm-up", temperature=0.0, **schema)
+    out["off"] = {"records": len(get_trace()),
+                  "timings": {k: len(v) for k, v in get_timings(reset=True).items()}}
+
+    passes, times = {}, {}
+    with profile(activities=[ProfilerActivity.CPU]):
+        times["profiled"] = [time.time_ns()]
+        for name, temperature in (("greedy", 0.0), ("sampled", 0.7)):
+            rec = recorder.begin()
+            t0 = time.time_ns()
+            engine.generate(f"inspect {name}", temperature=temperature, **schema)
+            times[name] = [t0, time.time_ns()]
+            passes[name] = rec["passes"]
+        session = engine.chat_start("a chat")
+        before = [engine.decode_tokens_total, engine.decode_device_s_total]
+        t0 = time.perf_counter()
+        times["chat"] = [time.time_ns()]
+        reply = "".join(engine.chat_turn(session, "and then?", max_tokens=20))
+        times["chat"].append(time.time_ns())
+        out["chat"] = {"tokens": engine.decode_tokens_total - before[0],
+                       "last": engine.last_decode_tokens, "reply": reply,
+                       "seconds": engine.decode_device_s_total - before[1],
+                       "wall": time.perf_counter() - t0}
+        times["profiled"].append(time.time_ns())
+    out["on_timings"] = {k: len(v) for k, v in get_timings(reset=True).items()}
+
+    batched = dataclasses.replace(settings, decode_batch_size=3, paged_kv_cache=True,
+                                  kv_pool_tokens=4096, scheduler_decode_chunk=16)
+    engine = E.build_small_text_engine("sched", "cpu", 3, config=cfg, settings=batched)
+    engine.attach_scheduler()
+    scheduler = engine.scheduler
+    try:
+        engine.generate("warm-up", max_tokens=4)
+        steps = scheduler.stats["steps"]
+        with profile(activities=[ProfilerActivity.CPU]):
+            times["scheduler"] = [time.time_ns()]
+            threads = [threading.Thread(target=engine.generate, args=(f"prompt {k}",),
+                                        kwargs={"max_tokens": n})
+                       for k, n in enumerate((20, 37, 50))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            engine.detach_scheduler()  # joins its thread: the last chunk's spans end
+            times["scheduler"].append(time.time_ns())
+        out["steps"] = scheduler.stats["steps"] - steps
+    finally:
+        engine.detach_scheduler()
+        recorder.uninstall()
+    out["stress"] = _trace_stress(profile, ProfilerActivity)
+    out["handed"] = _trace_handed_over(profile, ProfilerActivity)
+    out.update(passes=passes, times=times, records=get_trace(reset=True))
+    out["after_reset"] = len(get_trace())
+    return {"out": np.array(json.dumps(out))}
+
+
+def _trace_handed_over(profile, activity):
+    """A generator's span opened in this thread and closed in another (a
+    stream dropped by a thread that did not start it), then a span opened
+    here: its parent, and the threads of the two records."""
+    import threading
+    import time
+
+    from vis_tpu_torch.utils.logger import get_trace, span
+
+    def stream():
+        with span("handed.held", timed=False):
+            yield
+
+    with profile(activities=[activity.CPU]):
+        t0 = time.time_ns()
+        held = stream()
+        next(held)
+        closer = threading.Thread(target=held.close)
+        closer.start()
+        closer.join()
+        with span("handed.after", timed=False):
+            pass
+        t1 = time.time_ns()
+    recs = {r["name"]: r for r in get_trace() if r["name"].startswith("handed.")}
+    return {"after_parent": recs["handed.after"]["parent"],
+            "held_thread": recs["handed.held"]["thread"],
+            "after_thread": recs["handed.after"]["thread"],
+            "here": threading.get_ident(), "window": [t0, t1]}
+
+
+def _trace_stress(profile, activity, threads=16, pairs=200):
+    """Nested spans from more threads than cores, switching every
+    microsecond, under a CPU profiler: (records, distinct ids, children
+    whose parent is not their own thread's enclosing span)."""
+    import threading
+    import time
+
+    from vis_tpu_torch.utils.logger import get_trace, span, synced
+
+    def work(k):
+        for i in range(pairs):
+            with span(f"stress.{k}", timed=False):
+                synced(int, i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with profile(activities=[activity.CPU]):
+            t0 = time.time_ns()
+            pool = [threading.Thread(target=work, args=(k,)) for k in range(threads)]
+            for t in pool:
+                t.start()
+            for t in pool:
+                t.join(timeout=120)
+            alive = sum(t.is_alive() for t in pool)
+            t1 = time.time_ns()
+    finally:
+        sys.setswitchinterval(interval)
+    recs = [r for r in get_trace() if r["start_ns"] >= t0
+            and (r["name"].startswith("stress.") or r["name"] == "sync")]
+    by_id = {r["id"]: r for r in recs}
+    astray = sum(1 for r in recs if r["name"] == "sync" and not (
+        r["parent"] in by_id and by_id[r["parent"]]["thread"] == r["thread"]
+        and by_id[r["parent"]]["start_ns"] <= r["start_ns"] <= r["end_ns"]
+        <= by_id[r["parent"]]["end_ns"]))
+    return {"records": len(recs), "ids": len(by_id), "astray": astray, "alive": alive,
+            "expected": 2 * threads * pairs, "window": [t0, t1]}
+
+
 def main() -> int:
     case, in_path, out_path = sys.argv[1:4]
     inp = np.load(in_path, allow_pickle=False)

@@ -40,6 +40,7 @@ from vis_tpu_torch.models.common.layers import (
     rope_cos_sin,
     swiglu_mlp,
 )
+from vis_tpu_torch.utils.logger import span, synced
 from vis_tpu_torch.ops.quantized import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -89,6 +90,14 @@ def _position_tables(config: DecoderConfig, positions: torch.Tensor):
         )
     return rope_cos_sin(positions, config.head_dim_, config.rope_theta,
                         config.rope_scaling_dict)
+
+
+def _to_device(value, dtype, device: torch.device) -> torch.Tensor:
+    """``torch.as_tensor(value, dtype, device)``, a ``synced`` transfer
+    unless ``value`` is a tensor on ``device`` already."""
+    if isinstance(value, torch.Tensor) and value.device == device:
+        return torch.as_tensor(value, dtype=dtype, device=device)
+    return synced(torch.as_tensor, value, dtype=dtype, device=device)
 
 
 def init_decoder_params(config: DecoderConfig, generator: torch.Generator,
@@ -338,7 +347,7 @@ def lm_logits(config: DecoderConfig, params: Params, hidden: torch.Tensor) -> to
 
 def _last_logits(config, params, x, lengths: Sequence[int]) -> torch.Tensor:
     rows = torch.arange(x.shape[0], device=x.device)
-    last = torch.tensor([max(n - 1, 0) for n in lengths], device=x.device)
+    last = synced(torch.tensor, [max(n - 1, 0) for n in lengths], device=x.device)
     return lm_logits(config, params, x[rows, last][:, None])[:, 0]
 
 
@@ -354,7 +363,7 @@ def prefill_scan(
         raise ValueError(f"prefill chunk {s} exceeds the {cache.k.shape[2]}-token cache")
     device = input_embeds.device
     cos, sin = _position_tables(config, positions)
-    lengths_dev = torch.tensor(list(prompt_lengths), dtype=torch.int32, device=device)
+    lengths_dev = synced(torch.tensor, list(prompt_lengths), dtype=torch.int32, device=device)
     mask = causal_mask(s, s, device) + length_mask(s, lengths_dev)
     stacked = params["layers_stacked"]
     x = input_embeds
@@ -390,7 +399,7 @@ def extend_scan(
     cache_mask = torch.where(
         kj[None, :] < cache.lengths[:, None], 0.0, -1e30
     ).to(torch.float32)[:, None, None, :]
-    new_dev = torch.tensor(list(new_lengths), dtype=torch.int32, device=device)
+    new_dev = synced(torch.tensor, list(new_lengths), dtype=torch.int32, device=device)
     chunk_mask = causal_mask(s, s, device) + length_mask(s, new_dev)
     stacked = params["layers_stacked"]
     x = input_embeds
@@ -477,7 +486,7 @@ def gumbel_sample_token(logits: torch.Tensor, uniforms: torch.Tensor,
     """Gumbel-max sampling with caller-drawn uniforms in (0, 1] (the same
     [b, V] shape as the logits); rows with temperature <= 0 take the exact
     greedy argmax."""
-    temp = torch.as_tensor(temperature, dtype=torch.float32, device=logits.device)
+    temp = _to_device(temperature, torch.float32, logits.device)
     temp = temp.expand(logits.shape[0])
     gumbel = -torch.log(-torch.log(uniforms))
     sampled = torch.argmax(logits / torch.clamp_min(temp, 1e-6)[:, None] + gumbel, dim=-1)
@@ -559,16 +568,18 @@ def lookahead_decode(
     [b, window], cache, valid lengths) -> (last valid logits, cache)``,
     which writes the window's K/V at each row's cursor and moves the
     cursors by the valid lengths.  The window's tokens come to the host
-    once (the loop's one sync); with ``eos_id`` a row is done once its
-    valid span holds EOS, its cursor and position freeze, and the loop stops
-    when every row is done.
+    once; with ``eos_id`` a row is done once its valid span holds EOS, its
+    cursor and position freeze, and the loop stops when every row is done.
+    Each window is one ``decode.pass`` span, and each of its blocking
+    transfers a ``sync`` one (five a window through ``extend_scan``, six
+    with a float temperature).
 
     Returns (tokens [b, num_windows, window], valid [b, num_windows, window]
     on the host, last logits, cache, constraint).
     """
     b = first_logits.shape[0]
     device = first_logits.device
-    pos = torch.as_tensor(start_position, dtype=torch.int32, device=device).expand(b).clone()
+    pos = _to_device(start_position, torch.int32, device).expand(b).clone()
     offs = torch.arange(window, dtype=torch.int32, device=device)
     fill = eos_id if eos_id is not None else 0
     tokens_out = torch.full((b, num_windows, window), fill, dtype=torch.int64)
@@ -580,41 +591,42 @@ def lookahead_decode(
     for win in range(num_windows):
         if eos_id is not None and bool(done.all()):
             break
-        t0 = picker(logits)
-        con = picker.constraint
-        state, remaining = con.state, con.remaining
-        alive = torch.ones((b,), dtype=torch.bool, device=device)
-        chain_toks, chain_ok = [], []
-        for _ in range(window - 1):
-            ft = forced_token[state.long()]
-            ok = alive & (ft >= 0)
-            chain_toks.append(torch.where(ok, ft, 0).to(torch.int64))
-            chain_ok.append(ok)
-            state = torch.where(ok, forced_state[state.long()].to(state.dtype), state)
-            remaining = remaining - ok.to(remaining.dtype)
-            alive = ok
-        picker.constraint = con._replace(state=state, remaining=remaining)
-        w_tokens = torch.stack([t0] + chain_toks, dim=1)
-        w_valid = torch.stack([torch.ones_like(alive)] + chain_ok, dim=1)
+        with span("decode.pass", timed=False):
+            t0 = picker(logits)
+            con = picker.constraint
+            state, remaining = con.state, con.remaining
+            alive = torch.ones((b,), dtype=torch.bool, device=device)
+            chain_toks, chain_ok = [], []
+            for _ in range(window - 1):
+                ft = forced_token[state.long()]
+                ok = alive & (ft >= 0)
+                chain_toks.append(torch.where(ok, ft, 0).to(torch.int64))
+                chain_ok.append(ok)
+                state = torch.where(ok, forced_state[state.long()].to(state.dtype), state)
+                remaining = remaining - ok.to(remaining.dtype)
+                alive = ok
+            picker.constraint = con._replace(state=state, remaining=remaining)
+            w_tokens = torch.stack([t0] + chain_toks, dim=1)
+            w_valid = torch.stack([torch.ones_like(alive)] + chain_ok, dim=1)
 
-        host = torch.cat([w_tokens, w_valid.to(torch.int64)], dim=1).cpu()
-        h_tokens, h_valid = host[:, :window], host[:, window:].bool()
-        valid_len = h_valid.sum(dim=1).tolist()
+            host = synced(torch.cat([w_tokens, w_valid.to(torch.int64)], dim=1).cpu)
+            h_tokens, h_valid = host[:, :window], host[:, window:].bool()
+            valid_len = h_valid.sum(dim=1).tolist()
 
-        prev_lengths, prev_pos = list(cache.lengths_host), pos
-        logits, cache = extend(w_tokens, pos[:, None] + offs[None, :], cache, valid_len)
-        pos = pos + torch.tensor(valid_len, dtype=torch.int32, device=device)
+            prev_lengths, prev_pos = list(cache.lengths_host), pos
+            logits, cache = extend(w_tokens, pos[:, None] + offs[None, :], cache, valid_len)
+            pos = pos + synced(torch.tensor, valid_len, dtype=torch.int32, device=device)
 
-        if eos_id is not None:
-            h_valid = h_valid & ~done[:, None]
-            if bool(done.any()):
-                frozen = done.tolist()
-                cache.set_lengths([p if f else n for p, n, f in
-                                   zip(prev_lengths, cache.lengths_host, frozen)])
-                pos = torch.where(done.to(device), prev_pos, pos)
-            done = done | (h_valid & (h_tokens == eos_id)).any(dim=1)
-        tokens_out[:, win] = h_tokens
-        valid_out[:, win] = h_valid
+            if eos_id is not None:
+                h_valid = h_valid & ~done[:, None]
+                if bool(done.any()):
+                    frozen = done.tolist()
+                    cache.set_lengths([p if f else n for p, n, f in
+                                       zip(prev_lengths, cache.lengths_host, frozen)])
+                    pos = torch.where(synced(done.to, device), prev_pos, pos)
+                done = done | (h_valid & (h_tokens == eos_id)).any(dim=1)
+            tokens_out[:, win] = h_tokens
+            valid_out[:, win] = h_valid
     return tokens_out, valid_out, logits, cache, picker.constraint
 
 
@@ -637,14 +649,15 @@ def _eos_loop(slots: int, num_steps: int, eos_id: int, budget: Optional[Sequence
     past garbage writes; a caller chaining chunks rewinds them on the host."""
     budget = [num_steps] * slots if budget is None else list(budget)
     tokens = torch.full((slots, num_steps), eos_id, dtype=torch.int64, device=device)
-    budget_dev = torch.tensor(budget, dtype=torch.int64, device=device)
+    budget_dev = synced(torch.tensor, budget, dtype=torch.int64, device=device)
     done = budget_dev <= 0
     for step_idx in range(min(num_steps, max(budget))):
-        if bool(done.all()):
+        if synced(bool, done.all()):
             break
-        token = torch.where(done, eos_id, step_fn(step_idx))
-        tokens[:, step_idx] = token
-        done = done | (token == eos_id) | (step_idx + 1 >= budget_dev)
+        with span("decode.pass", timed=False):
+            token = torch.where(done, eos_id, step_fn(step_idx))
+            tokens[:, step_idx] = token
+            done = done | (token == eos_id) | (step_idx + 1 >= budget_dev)
     return tokens
 
 
@@ -697,7 +710,7 @@ def _dense_loop(
     set to match.  Returns (tokens [b, num_steps], last logits)."""
     b = first_logits.shape[0]
     device = first_logits.device
-    start = torch.as_tensor(start_position, dtype=torch.int32, device=device).expand(b)
+    start = _to_device(start_position, torch.int32, device).expand(b)
     carry = {"logits": first_logits, "lengths": cache.lengths, "steps": 0}
 
     def step(step_idx):
@@ -817,8 +830,7 @@ def decode_loop_paged(
     host-side ``budget``.  Returns (tokens [slots, num_steps] on the device,
     last logits, pool_k, pool_v, lengths)."""
     slots = page_tables.shape[0]
-    start = torch.as_tensor(start_position, dtype=torch.int32,
-                            device=first_logits.device).expand(slots)
+    start = _to_device(start_position, torch.int32, first_logits.device).expand(slots)
     carry = {"logits": first_logits, "lengths": lengths}
     picker = TokenPicker()
 
@@ -849,8 +861,7 @@ def decode_loop_paged_constrained(
     (0, 1].  Returns (tokens, last logits, pool_k, pool_v, lengths,
     constraint)."""
     slots = page_tables.shape[0]
-    start = torch.as_tensor(start_position, dtype=torch.int32,
-                            device=first_logits.device).expand(slots)
+    start = _to_device(start_position, torch.int32, first_logits.device).expand(slots)
     carry = {"logits": first_logits, "lengths": lengths}
     picker = TokenPicker(constraint, draw_uniforms, temperature)
 

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from vis_tpu_torch.utils.logger import synced
 from vis_tpu_torch.ops.quantized import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -209,7 +210,8 @@ class KVCache:
 
     def set_lengths(self, lengths) -> None:
         self.lengths_host = [int(n) for n in lengths]
-        self.lengths = torch.tensor(self.lengths_host, dtype=torch.int32, device=self.k.device)
+        self.lengths = synced(torch.tensor, self.lengths_host, dtype=torch.int32,
+                              device=self.k.device)
 
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
         """Write k/v [b, s, kvh, d] of ``layer`` at each row's cursor; the

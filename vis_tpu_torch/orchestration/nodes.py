@@ -96,8 +96,7 @@ def check_image_quality(state: InspectionState) -> InspectionState:
     state["current_step"] = "quality_check"
     try:
         paths = _as_path_list(state["image_path"])
-        with span("quality_check", logger):
-            quality = assess_image_quality(Path(paths[0]))
+        quality = assess_image_quality(Path(paths[0]))
         state["image_quality"] = quality
         if not quality.get("quality_passed", False):
             logger.warning(
@@ -630,8 +629,7 @@ def finalize_inspection(state: InspectionState) -> InspectionState:
         try:
             from vis_tpu_torch.reporting import generate_report
 
-            with span("pdf_report", logger):
-                report_path = generate_report(state)
+            report_path = generate_report(state)
             state["report_path"] = str(report_path)
             logger.info(f"PDF report generated: {report_path}")
             # The database node persisted the row before the PDF existed;

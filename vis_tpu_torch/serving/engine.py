@@ -40,7 +40,7 @@ from vis_tpu_torch.ops.preprocess import (
 )
 from vis_tpu_torch.serving.tokenizer import ByteTokenizer
 from vis_tpu_torch.utils.config import config as app_config
-from vis_tpu_torch.utils.logger import setup_logger, span
+from vis_tpu_torch.utils.logger import setup_logger, span, synced
 from vis_tpu_torch.models.common.decoder import (
     DecodeConstraint,
     DecoderConfig,
@@ -173,7 +173,7 @@ def chunked_decode(run_chunk, start: int, budget: int, chunk: int, eos_id: int,
     remaining, pos, done = budget, start, False
     while remaining > 0 and not done:
         steps = min(chunk, remaining)
-        for token_id in run_chunk(pos, steps)[0].tolist():
+        for token_id in synced(run_chunk(pos, steps)[0].tolist):
             if token_id == eos_id:
                 done = True
                 break
@@ -332,13 +332,17 @@ class Engine:
                 chunk_start = cache.lengths_host[0]
                 tokens, carry["logits"], _ = decode_loop_scan(
                     self.text_config, params, carry["logits"], pos, cache, steps, eos_id=eos)
-                row = tokens[0].tolist()
+                row = synced(tokens[0].tolist)
                 if eos in row:  # the next turn overwrites EOS and what followed it
                     cache.set_lengths([chunk_start + row.index(eos)])
                 return tokens
 
-            yield from chunked_decode(run, session.position, max_tokens,
-                                      self.settings.decode_chunk, eos, stream)
+            decode_start = time.perf_counter()
+            with span("engine.decode", logger):
+                yield from chunked_decode(run, session.position, max_tokens,
+                                          self.settings.decode_chunk, eos, stream)
+                self._sync()
+            self.decode_device_s_total += time.perf_counter() - decode_start
             session.position += len(stream.generated)
             session.cache, session.logits = cache, carry["logits"]
             self.last_decode_tokens = len(stream.generated)
@@ -522,8 +526,8 @@ class Engine:
         sampled (Gumbel-max from ``draw``) when temperature > 0, greedy
         otherwise."""
         tables = json_tables[-1]
-        forced_tok = torch.from_numpy(tables.forced_token).to(self.device)
-        forced_state = torch.from_numpy(tables.forced_state).to(self.device)
+        forced_tok = synced(torch.from_numpy(tables.forced_token).to, self.device)
+        forced_state = synced(torch.from_numpy(tables.forced_state).to, self.device)
         eos = self.tokenizer.eos_id
         remaining, step0, done = max_tokens, 0, False
         while remaining > 0 and not done:

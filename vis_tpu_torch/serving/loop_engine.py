@@ -49,7 +49,7 @@ from vis_tpu_torch.serving.engine import (
     use_lookahead,
     window_tokens,
 )
-from vis_tpu_torch.utils.logger import setup_logger, span
+from vis_tpu_torch.utils.logger import setup_logger, span, synced
 
 logger = setup_logger(__name__, level="INFO", component="LOOP_ENGINE")
 
@@ -159,7 +159,8 @@ class LoopDecodeEngine:
         def extend(w_tokens, positions, cache: KVCache, valid_len):
             n, length0 = valid_len[0], cache.lengths_host[0]
             max_len = cache.k.shape[2]
-            new_len = torch.tensor([length0 + n], dtype=torch.int32, device=self.device)
+            new_len = synced(torch.tensor, [length0 + n], dtype=torch.int32,
+                             device=self.device)
             mask = (causal_mask(w_tokens.shape[1], max_len, self.device, offset=length0)
                     + length_mask(max_len, new_len))
             hidden, cache = self._model_forward(
@@ -259,8 +260,8 @@ class LoopDecodeEngine:
         ``settings.lookahead`` tokens, ``settings.decode_chunk`` windows a
         call, until EOS or the budget."""
         tables = json_tables[-1]
-        forced_tok = torch.from_numpy(tables.forced_token).to(self.device)
-        forced_state = torch.from_numpy(tables.forced_state).to(self.device)
+        forced_tok = synced(torch.from_numpy(tables.forced_token).to, self.device)
+        forced_state = synced(torch.from_numpy(tables.forced_state).to, self.device)
         eos = self.tokenizer.eos_id
         remaining, pos, done = max_tokens, seq_len, False
         extend = self._window_extend(aux)

@@ -40,7 +40,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from vis_tpu_torch.utils.logger import setup_logger, span
+from vis_tpu_torch.utils.logger import setup_logger, span, synced
 from vis_tpu_torch.models.common.decoder import (
     DecodeConstraint,
     DecoderConfig,
@@ -417,6 +417,16 @@ class ContinuousBatchingScheduler:
         tokens per active slot, ending early once every live row has hit
         EOS or its budget.  Inactive rows compute garbage at their zeroed
         cursors into the trash page."""
+        # The chunk's span holds the transfers that set it up beside its
+        # decode span, so a trace counts every transfer of the chunk.
+        with span("scheduler.chunk", timed=False):
+            steps, prev_lengths, token_matrix = self._decode_chunk()
+        with span("scheduler.host"):
+            self._postprocess_chunk(steps, prev_lengths, token_matrix)
+
+    def _decode_chunk(self):
+        """The device side of a chunk: (steps, the cursors before it, its
+        token matrix on the host)."""
         steps = self.decode_chunk
         positions = np.zeros((self.num_slots,), np.int64)
         budget = [0] * self.num_slots
@@ -425,7 +435,8 @@ class ContinuousBatchingScheduler:
                 positions[i] = slot.position
                 budget[i] = max(0, slot.remaining)
         prev_lengths = self._lengths_host.copy()
-        start_pos, cursors = torch.from_numpy(np.stack([positions, prev_lengths])).to(self.device)
+        start_pos, cursors = synced(torch.from_numpy(np.stack([positions, prev_lengths])).to,
+                                    self.device)
         any_sampled = any(s.active and self._temps_host[i] > 0
                           for i, s in enumerate(self.slots))
         self.stats["chunks"] += 1
@@ -444,7 +455,8 @@ class ContinuousBatchingScheduler:
                 if any_sampled:
                     common.update(
                         draw_uniforms=self._draw_uniforms,
-                        temperature=torch.from_numpy(self._temps_host).to(self.device))
+                        temperature=synced(torch.from_numpy(self._temps_host).to,
+                                           self.device))
                 tokens, self._logits, _, _, lengths, constraint = decode_loop_paged_constrained(
                     self.config, self.params, self._logits, start_pos, self.pool.k,
                     self.pool.v, self.pool.page_tables, cursors, constraint, steps,
@@ -458,12 +470,12 @@ class ContinuousBatchingScheduler:
                     self.pool.v, self.pool.page_tables, cursors, steps, **common)
             # The chunk's one read-back: its tokens, and the cursors, which
             # every step advances for every row.
-            back = torch.cat([tokens, lengths[:, None].to(tokens.dtype)], dim=1).cpu().numpy()
+            back = synced(torch.cat([tokens, lengths[:, None].to(tokens.dtype)], dim=1).cpu)
+            back = back.numpy()
         token_matrix = back[:, :-1]
         self.stats["steps"] += int(back[0, -1] - prev_lengths[0])
         self.decode_device_s_total += time.perf_counter() - start
-        with span("scheduler.host"):
-            self._postprocess_chunk(steps, prev_lengths, token_matrix)
+        return steps, prev_lengths, token_matrix
 
     def _postprocess_chunk(self, steps, prev_lengths, token_matrix) -> None:
         """Host side of a chunk: keep tokens up to EOS/budget, stream deltas,

@@ -9,15 +9,17 @@ per-stage device timings are added for the GPU execution path.
 
 from __future__ import annotations
 
+import collections
+import itertools
 import json
 import logging
 import re
 import sys
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import nullcontext
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 _LEVEL_COLORS = {
     "DEBUG": "\x1b[36m",     # cyan
@@ -202,22 +204,92 @@ def setup_logger(
 # ---------------------------------------------------------------------------
 # Device-timing spans (replacement for LangSmith tracing; SURVEY §5.1)
 # ---------------------------------------------------------------------------
+#
+# While a torch profiler records (in any thread of the process), every span
+# also leaves one timestamped record in a bounded list (get_trace) and opens
+# a ``record_function`` range of its name, so the program's spans sit on the
+# profiler's timeline beside the kernels.  A record: name, id, parent (the
+# innermost span open in the same thread), thread, start_ns and end_ns on
+# time.time_ns(), the clock of the profiler's device events.  With no
+# profiler the added work is one flag check.
 
 _timings: Dict[str, List[float]] = {}
+TRACE_CAP = 1 << 18  # records kept; the oldest go first
+_trace: Deque[Dict[str, Any]] = collections.deque(maxlen=TRACE_CAP)
+_span_ids = itertools.count(1)
+_open = threading.local()  # .stack: this thread's open records, innermost last
+_NO_SPAN = nullcontext()
 
 
-@contextmanager
-def span(name: str, logger: Optional[logging.Logger] = None) -> Iterator[None]:
-    """Wall-clock span; accumulates per-stage timings retrievable via get_timings()."""
-    start = time.perf_counter()
-    try:
-        yield
-    finally:
-        elapsed = time.perf_counter() - start
-        with _lock:
-            _timings.setdefault(name, []).append(elapsed)
-        if logger is not None:
-            logger.debug(f"[span] {name}: {elapsed*1000:.1f} ms")
+def tracing() -> bool:
+    """True while a torch profiler records anywhere in the process (torch's
+    own process-wide flag: the profiler's C++ state is per thread, and the
+    scheduler decodes in a thread of its own)."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and getattr(prof, "_is_profiler_enabled", False)
+
+
+class _Span:
+    __slots__ = ("name", "logger", "timed", "start", "rec", "stack", "profiler_range")
+
+    def __init__(self, name, logger, timed):
+        self.name, self.logger, self.timed = name, logger, timed
+        self.rec = None
+
+    def __enter__(self) -> None:
+        if tracing():
+            stack = getattr(_open, "stack", None)
+            if stack is None:
+                stack = _open.stack = []
+            rec = {"name": self.name, "id": next(_span_ids),
+                   "parent": stack[-1]["id"] if stack else None,
+                   "thread": threading.get_ident()}
+            stack.append(rec)
+            self.rec, self.stack = rec, stack
+            self.profiler_range = sys.modules["torch.autograd.profiler"].record_function(self.name)
+            self.profiler_range.__enter__()
+            rec["start_ns"] = time.time_ns()
+        self.start = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        elapsed = time.perf_counter() - self.start
+        rec = self.rec
+        if rec is not None:
+            rec["end_ns"] = time.time_ns()
+            self.profiler_range.__exit__(None, None, None)
+            # Off the stack of the thread that opened it: a generator's span
+            # may close after a later one, or in another thread.
+            stack = self.stack
+            for i in range(len(stack) - 1, -1, -1):
+                if stack[i] is rec:
+                    del stack[i]
+                    break
+            with _lock:
+                _trace.append(rec)
+        if self.timed:
+            with _lock:
+                _timings.setdefault(self.name, []).append(elapsed)
+        if self.logger is not None:
+            self.logger.debug(f"[span] {self.name}: {elapsed*1000:.1f} ms")
+
+
+def span(name: str, logger: Optional[logging.Logger] = None, *, timed: bool = True):
+    """Wall-clock span; accumulates per-stage timings retrievable via
+    get_timings().  ``timed=False`` keeps it out of them (a span per weight
+    pass or transfer; with no profiler it is then a no-op)."""
+    if not timed and not tracing():
+        return _NO_SPAN
+    return _Span(name, logger, timed)
+
+
+def synced(fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
+    """``fn(*args, **kwargs)``: one blocking host<->device transfer (a
+    ``.cpu()``, ``.tolist()`` or ``bool()`` of a device tensor, a host list
+    or array copied to the device), under a ``sync`` span."""
+    if not tracing():
+        return fn(*args, **kwargs)
+    with span("sync", timed=False):
+        return fn(*args, **kwargs)
 
 
 def get_timings(reset: bool = False) -> Dict[str, List[float]]:
@@ -225,6 +297,18 @@ def get_timings(reset: bool = False) -> Dict[str, List[float]]:
         out = {k: list(v) for k, v in _timings.items()}
         if reset:
             _timings.clear()
+    return out
+
+
+def get_trace(reset: bool = False) -> List[Dict[str, Any]]:
+    """The span records kept while a profiler recorded, oldest first (each
+    appended when its span ends); ``reset`` drops them once read.
+    ``get_timings(reset=True)`` leaves them; readers clip them to their own
+    window."""
+    with _lock:
+        out = list(_trace)
+        if reset:
+            _trace.clear()
     return out
 
 
@@ -278,7 +362,9 @@ __all__ = [
     "SensitiveDataFilter",
     "ContextFilter",
     "span",
+    "synced",
     "get_timings",
+    "get_trace",
     "print_banner",
     "print_table",
     "print_health_check_table",

@@ -15,7 +15,7 @@ from pathlib import Path
 from typing import Iterator
 
 from vis_tpu_torch.utils.config import config
-from vis_tpu_torch.utils.logger import get_request_id, setup_logger, span
+from vis_tpu_torch.utils.logger import get_request_id, get_trace, setup_logger, span
 
 logger = setup_logger(__name__, level="INFO", component="PROFILER")
 
@@ -50,16 +50,8 @@ def device_trace(phase: str) -> Iterator[None]:
                 yield
     path = trace_dir / f"{phase}.trace.json"
     prof.export_chrome_trace(str(path))
+    get_trace(reset=True)  # the file holds the spans' ranges; nothing else reads them
     logger.info(f"Profiler trace for '{phase}' written to {path}")
 
 
-@contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """Lightweight trace annotation (shows up inside an active trace)."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield
-
-
-__all__ = ["device_trace", "annotate", "profiling_enabled"]
+__all__ = ["device_trace", "profiling_enabled"]
