@@ -28,6 +28,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    logits, a lookahead window, one batched paged decode chunk; the Mllama
    tower's features; one 16-step chunk of each token-a-pass decode loop,
    greedy, sampled and schema-constrained, its first step's logits held);
+   Then the window-graph phase: the inspector's lookahead decode at the
+   photo cell's size (int4 Qwen2.5-VL-7B, 448-token schema answers), one
+   greedy and one sampled request, replayed as a CUDA graph and eager, bit
+   for bit equal (tokens, valid masks, cursors, K/V, final logits), with
+   as many kernel launches counted both ways (a replay counts what its
+   capture recorded); two engines replaying at once from two threads, each
+   equal to its request alone; the capture ms, ms a window both ways and
+   the graph's pool bytes;
 5. int4 slice: vis_tpu_torch.orchestration.graph.run_inspection on
    assets/sample.jpg, three requests, with the Qwen2.5-VL-7B inspector, the
    Llama-3.2-11B-Vision auditor and the Llama-3.1-8B explainer on the port
@@ -1084,6 +1092,192 @@ class _BundleRecorder:
 BUNDLE_DEFECTS = [{"type": "crack", "safety_impact": "MODERATE", "location": "weld seam"}]
 
 
+# The window-graph phase: the inspector's lookahead decode at the photo
+# cell's size (bench_torch/configs/qwen2_5_vl_7b.json: an 8,192-token cache
+# cap, 448-token schema answers with a 432-token floor, windows of 8 in calls
+# of 64, the agent's temperature 0.1 when sampled).
+WINDOW_SETTINGS = dict(max_cache_tokens=8192, decode_chunk=64, lookahead=8,
+                       min_json_tokens=432)
+WINDOW_BUDGET, WINDOW_TEMPERATURE = 448, 0.1
+WINDOW_PROMPT = ("Inspect this part for defects. " * 84).strip()
+
+
+def _pool_bytes(graph) -> int:
+    """Bytes of the segments the caching allocator holds for ``graph``'s
+    private pool."""
+    import torch
+
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def _launch_counts() -> dict:
+    """Every hand-written kernel wrapper's ``launches``, by name."""
+    from vis_tpu_torch.ops import flash_attention, int_dot, quantized
+
+    return {name: fn.launches for module in (flash_attention, int_dot, quantized)
+            for name, fn in vars(module).items() if hasattr(fn, "launches")}
+
+
+def _window_request(engine, prefill, side: str, temperature: float) -> dict:
+    """One schema request's decode from ``prefill`` (cache, logits, next
+    position) on a copy of its cache, chained call after call as
+    ``Engine._lookahead_decode`` chains them: ``decode_loop_lookahead``
+    (``side`` "replayed": the cache's window pass, its windows after the
+    first replaying one CUDA graph) or ``lookahead_decode`` over
+    ``extend_scan`` (side "eager": each window launched op by op)."""
+    import torch
+
+    from vis_tpu_torch.models.common.decoder import (
+        decode_loop_lookahead,
+        extend_scan,
+        lookahead_decode,
+    )
+    from vis_tpu_torch.models.common.layers import embed
+    from vis_tpu_torch.serving import engine as E
+
+    tc, params = engine.text_config, engine.params["text"]
+    json_tables = engine._json_tables("inspection")
+    tables = json_tables[-1]
+    forced_tok = torch.from_numpy(tables.forced_token).to(engine.device)
+    forced_state = torch.from_numpy(tables.forced_state).to(engine.device)
+    eos, settings = engine.tokenizer.eos_id, engine.settings
+    cache0, logits, next_pos = prefill
+    cache = _clone_cache(cache0)
+    constraint = E.request_constraint(json_tables, WINDOW_BUDGET, settings.min_json_tokens,
+                                      engine.device)
+    draw = E.request_uniforms(engine.device) if temperature > 0 else None
+
+    def eager_extend(w_tokens, w_valid, positions, cache, valid_len):
+        embeds = embed(w_tokens, params["embed_tokens"])
+        return extend_scan(tc, params, embeds, positions[None].expand(3, *positions.shape),
+                           cache, valid_len)
+
+    remaining, step0, done, generated = WINDOW_BUDGET, 0, False, []
+    tokens_all, valid_all, windows = [], [], 0
+    torch.cuda.synchronize()
+    launched = _launch_counts()
+    start = time.perf_counter()
+    while remaining > 0 and not done:
+        common = dict(draw_uniforms=draw, temperature=temperature, eos_id=eos)
+        if side == "replayed":
+            tokens, valid, logits, cache, constraint = decode_loop_lookahead(
+                tc, params, logits, next_pos + step0, cache, constraint, forced_tok,
+                forced_state, settings.decode_chunk, settings.lookahead, **common)
+        else:
+            tokens, valid, logits, cache, constraint = lookahead_decode(
+                logits, next_pos + step0, cache, constraint, forced_tok, forced_state,
+                settings.decode_chunk, settings.lookahead, eager_extend, **common)
+        tokens_all.append(tokens)
+        valid_all.append(valid)
+        windows += int(valid.any(dim=2).any(dim=0).sum())
+        emitted_n, done = E.window_tokens(tokens[0].tolist(), valid[0].tolist(), eos,
+                                          remaining, generated)
+        remaining -= emitted_n
+        step0 += emitted_n
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launched = {k: n - launched[k] for k, n in _launch_counts().items() if n != launched[k]}
+    runner = cache.window_pass
+    return {"tokens": torch.cat(tokens_all, dim=1), "valid": torch.cat(valid_all, dim=1),
+            "logits": logits, "cache": cache, "generated": len(generated),
+            "windows": windows, "seconds": seconds, "launches": launched,
+            "capture_s": runner.capture_s if runner is not None else None,
+            "pool_bytes": (_pool_bytes(runner.graph)
+                           if runner is not None and runner.graph is not None else None)}
+
+
+def _same_request(label: str, got: dict, want: dict) -> None:
+    """Tokens, valid masks, cursors (device and host), K/V and the final
+    logits, all bit for bit."""
+    import torch
+
+    checks = {
+        "tokens": torch.equal(got["tokens"], want["tokens"]),
+        "valid": torch.equal(got["valid"], want["valid"]),
+        "cursors": (torch.equal(got["cache"].lengths, want["cache"].lengths)
+                    and got["cache"].lengths_host == want["cache"].lengths_host),
+        "kv": (torch.equal(got["cache"].k, want["cache"].k)
+               and torch.equal(got["cache"].v, want["cache"].v)),
+        "logits": torch.equal(got["logits"], want["logits"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"[{label}] replayed and eager differ: {checks}")
+
+
+def phase_window_graph(label: str = "window graph") -> None:
+    """The inspector's lookahead decode at the photo cell's size (int4
+    Qwen2.5-VL-7B, a ~2.5k-byte prompt after the sample photo, 448-token
+    schema answers): one greedy and one sampled request, each replayed (a
+    CUDA graph captured on its second window) and eager, must agree bit for
+    bit in tokens, valid masks, cursors, K/V and final logits, and count
+    the same kernel launches.  Then two engines decode a replayed greedy
+    request each, at once from two threads (as the dual-VLM node's engines
+    do), each equal to its request run alone.  Prints the capture ms, ms a window both ways and the graph's
+    pool bytes."""
+    import threading
+
+    import torch
+
+    from vis_tpu_torch.serving import engine as E
+
+    settings = E.ServingSettings(**WINDOW_SETTINGS)
+    engines = [E.build_target_engine(f"window-{i}", DEVICE, SEED + i, settings)
+               for i in range(2)]
+    prefills = []
+    for engine in engines:
+        cache, logits, next_pos, seq_len, _ = engine._prefill_request(
+            WINDOW_PROMPT, str(SAMPLE), max_tokens=WINDOW_BUDGET, max_image_dim=1024)
+        prefills.append((cache, logits, next_pos))
+    print(f"[{label}] prompt {seq_len} tokens, cache {cache.k.shape[2]} tokens")
+    alone = {}
+    for mode, temperature in (("greedy", 0.0), ("sampled", WINDOW_TEMPERATURE)):
+        eager = _window_request(engines[0], prefills[0], "eager", temperature)
+        replayed = _window_request(engines[0], prefills[0], "replayed", temperature)
+        _same_request(f"{label} {mode}", replayed, eager)
+        # A replay counts the launches its capture recorded: the kernels
+        # that ran, as many as the eager windows launched.
+        if replayed["launches"] != eager["launches"] or not eager["launches"]:
+            raise AssertionError(f"[{label}] {mode}: kernel launches replayed "
+                                 f"{replayed['launches']}, eager {eager['launches']}")
+        alone[mode] = replayed
+        print(f"[{label}] {mode}: {replayed['generated']} tokens in {replayed['windows']} "
+              f"windows, bit-equal; ms a window replayed "
+              f"{1e3 * replayed['seconds'] / replayed['windows']:.3f} (capture "
+              f"{1e3 * replayed['capture_s']:.1f} ms), eager "
+              f"{1e3 * eager['seconds'] / eager['windows']:.3f}; graph pool "
+              f"{replayed['pool_bytes']} bytes; kernel launches both ways "
+              f"{replayed['launches']}")
+    alone["other"] = _window_request(engines[1], prefills[1], "replayed", 0.0)
+    results, errors = {}, []
+
+    def run(i):
+        try:
+            results[i] = _window_request(engines[i], prefills[i], "replayed", 0.0)
+        except Exception as exc:  # reported below, with the other thread's result
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - start
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"[{label}] two threads: {errors or 'a thread hung'}")
+    _same_request(f"{label} thread 0", results[0], alone["greedy"])
+    _same_request(f"{label} thread 1", results[1], alone["other"])
+    print(f"[{label}] two engines in two threads: both equal to their requests alone, "
+          f"{wall:.3f} s for {results[0]['windows']} + {results[1]['windows']} windows")
+    del engines, prefills, alone, results
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _decide_always(explainer) -> None:
     """Make every report bundle decode decision support.  With no defect
     the agent answers "No Action Required" without a decode; then its
@@ -2118,6 +2312,7 @@ def main() -> int:
     kernels = phase_kernels()
     for quantization in ("int4", "int8"):
         phase_reference(quantization)
+    phase_window_graph()
     int4 = phase_slice("int4 slice", PROFILE, "ABCD")
     _release_engines()
     int8 = phase_slice("int8 slice", INT8_PROFILE, "CDE")

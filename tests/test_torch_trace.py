@@ -14,15 +14,18 @@ requests through the paged scheduler.  Pinned here:
   under its decode span; a scheduler chunk's decode span inside its
   ``scheduler.chunk`` span with the chunk's input transfer;
 - the ``sync`` records of a lookahead window: the blocking transfers the
-  decode loop makes;
+  decode loop makes; no ``decode.replay`` record on the CPU, and on the
+  card's path (a stand-in graph whose replay runs the pass eagerly) one
+  inside every window of a request but its first (the warm-up);
 - children inside their parents, all records inside ``time.time_ns()``
   readings taken around the calls (the profiler's clock), and so from 16
   threads at once; a span closed in another thread leaves its own
   thread's stack; ``get_trace(reset=True)`` drops what it returns;
 - a chat turn's decode in an ``engine.decode`` span, its seconds and
   tokens both counted by the engine;
-- each ``decode.*_per_pass`` reader on a hand-built timeline, which
-  leaves out a chunk that another thread's prefill overlaps.
+- each ``decode.*`` reader on a hand-built timeline, which leaves out a
+  chunk that another thread's prefill overlaps; the replayed share at 0
+  where nothing replays, and silent for a program without the graph.
 """
 
 import json
@@ -38,9 +41,9 @@ ROOT = Path(__file__).resolve().parents[1]
 SETTINGS = dict(max_cache_tokens=1024, decode_chunk=8, lookahead=8, device_preprocess=False,
                 min_json_tokens=0)
 # A lookahead window's blocking transfers (models/common/decoder.py): its
-# tokens' .cpu(), extend_scan's lengths, KVCache.set_lengths, the last
-# logits' index, the position update; a sampled pick adds its temperature.
-SYNCS_PER_WINDOW = {"greedy": 5, "sampled": 6}
+# tokens' .cpu().  The window's pass reads no host value, and a sampled
+# call sends its temperature once, before its first window.
+SYNCS_PER_WINDOW = {"greedy": 1, "sampled": 1}
 CHAT_TOKENS = 20
 
 
@@ -85,6 +88,25 @@ def test_sync_records_per_window(port, mode):
     assert counts == {SYNCS_PER_WINDOW[mode]}
 
 
+@pytest.mark.parametrize("mode", sorted(SYNCS_PER_WINDOW))
+def test_replay_records_under_their_pass(port, mode):
+    # On the CPU every window runs eagerly: no replay.
+    records = _within(port["records"], port["times"][mode])
+    assert not [r for r in records if r["name"] == "decode.replay"]
+    # The card's path with a stand-in graph: the request's first window
+    # warms its pass up, every later one replays, inside its pass.
+    records = _within(port["records"], port["times"][f"replayed_{mode}"])
+    by_id = {r["id"]: r for r in records}
+    passes = sorted((r for r in records if r["name"] == "decode.pass"),
+                    key=lambda r: r["start_ns"])
+    replays = [r for r in records if r["name"] == "decode.replay"]
+    assert all(by_id[r["parent"]]["name"] == "decode.pass" for r in replays)
+    assert len(passes) > 1
+    assert sorted(r["parent"] for r in replays) == sorted(p["id"] for p in passes[1:])
+    # With no profiler nothing is recorded (test_no_profiler_keeps_no_record).
+    assert port["off"]["records"] == 0
+
+
 def test_scheduler_passes_equal_its_steps(port):
     from bench_torch.harness.passes import DecodeRecords
 
@@ -111,8 +133,8 @@ def test_scheduler_passes_equal_its_steps(port):
 def test_records_nest_on_the_callers_clock(port):
     records = port["records"]
     by_id = {r["id"]: r for r in records}
-    windows = [port["times"]["profiled"], port["times"]["scheduler"], port["stress"]["window"],
-               port["handed"]["window"]]
+    windows = [port["times"]["profiled"], port["times"]["replayed"], port["times"]["scheduler"],
+               port["stress"]["window"], port["handed"]["window"]]
     for r in records:
         assert r["start_ns"] <= r["end_ns"]
         assert any(lo <= r["start_ns"] and r["end_ns"] <= hi for lo, hi in windows), r
@@ -149,8 +171,8 @@ def test_chat_turn_counts_its_decode(port):
 
 
 # A hand-built window [0, 1 ms].  Thread 1: an engine.decode span [100,
-# 700] us with two passes and a sync of its own, inside an ``inspector``
-# span that also holds a sync outside it.  Thread 2: a scheduler.chunk
+# 700] us with two passes (the second replayed) and a sync of its own,
+# inside an ``inspector`` span that also holds a sync outside it.  Thread 2: a scheduler.chunk
 # [580, 900] holding its input transfer and a scheduler.decode with one
 # pass; a second chunk [920, 990] that thread 3's prefill overlaps (left
 # out, its pass too); a chunk past the window.
@@ -184,14 +206,19 @@ RECORDS = [
     _rec("scheduler.chunk", 21, None, 2, 1100, 1200),
     _rec("scheduler.decode", 12, 21, 2, 1100, 1200),
     _rec("decode.pass", 13, 12, 2, 1100, 1150),
+    _rec("decode.replay", 22, 5, 1, 310, 490),
+    _rec("decode.replay", 23, 18, 2, 935, 975),
+    _rec("decode.replay", 24, 13, 2, 1105, 1145),
 ]
 EVENTS = [(50, 90), (150, 260), (320, 330), (585, 590), (600, 720), (880, 950), (950, 960),
           (1100, 1110)]
 # Passes 3, 5, 10.  Host: (200 - 50) + (200 - 80) + (200 - 50) us.  Syncs
 # in the regions: 4, 6, 7, 15, 11.  Events starting in [100, 900] us:
 # 150, 320, 585, 600, 880.  Busy inside [100, 900]: 110 + 10 + 5 + 120 + 20
-# of 800 us.
+# of 800 us.  Replays under those passes: 22 (23's pass is left out, 24's
+# past the window).
 EXPECTED = {
+    "decode.replayed_share": 100 / 3,
     "decode.host_ms_per_pass": 0.420 / 3,
     "decode.syncs_per_pass": 5 / 3,
     "decode.device_ops_per_pass": 5 / 3,
@@ -223,6 +250,36 @@ def test_reader_on_a_hand_built_timeline(metric, monkeypatch):
     assert reader.read(SimpleNamespace(trace=None)) is None
     monkeypatch.setattr(program_logger, "get_trace", lambda: RECORDS[:2])
     assert reader.read(run) is None
+
+
+def _replayed_share_reader():
+    from bench_torch.harness.spec import BENCH_DIR, load_module
+
+    return load_module(BENCH_DIR / "metrics" / "decode.replayed_share.py",
+                       "bench_metric_decode.replayed_share")
+
+
+def test_replayed_share_is_silent_without_replays(monkeypatch):
+    """A program with no replayed window pass (no ``WindowPass`` in its
+    decoder, as before the graph) gives no reading, though its passes
+    are recorded."""
+    import vis_tpu_torch.models.common.decoder as program_decoder
+    import vis_tpu_torch.utils.logger as program_logger
+
+    monkeypatch.setattr(program_logger, "get_trace", lambda: [
+        dict(r) for r in RECORDS if r["name"] != "decode.replay"])
+    monkeypatch.delattr(program_decoder, "WindowPass")
+    assert _replayed_share_reader().read(_synthetic_run()) is None
+
+
+def test_replayed_share_reads_zero_when_nothing_replays(monkeypatch):
+    """A program that has the window pass but whose passes never replay
+    (a lost capture, a pass rebuilt every window) reads 0, not nothing."""
+    import vis_tpu_torch.utils.logger as program_logger
+
+    monkeypatch.setattr(program_logger, "get_trace", lambda: [
+        dict(r) for r in RECORDS if r["name"] != "decode.replay"])
+    assert _replayed_share_reader().read(_synthetic_run()) == 0.0
 
 
 def test_regions_leave_out_a_chunk_under_anothers_prefill():

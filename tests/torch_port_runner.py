@@ -1882,17 +1882,303 @@ def case_decode_pipeline(inp):
     }))}
 
 
+# ---------------------------------------------------------------------------
+# The lookahead window pass (``decoder.WindowPass`` over ``_extend_pass``)
+# against the list-driven ``extend_scan`` and ``lookahead_decode`` it
+# replaced, kept below as they were as the reference: cursors taken from
+# the host mirror, per-row slice writes, the last index and the position
+# update sent from host lists, the cursors rebound to a new tensor.
+# ---------------------------------------------------------------------------
+
+def _reference_set_lengths(cache, lengths):
+    cache.lengths_host = [int(n) for n in lengths]
+    cache.lengths = torch.tensor(cache.lengths_host, dtype=torch.int32)
+
+
+def _reference_extend_scan(config, params, input_embeds, positions, cache, new_lengths):
+    from vis_tpu_torch.models.common import decoder as D
+    from vis_tpu_torch.models.common.layers import causal_mask, length_mask, rms_norm
+
+    s = input_embeds.shape[1]
+    max_len = cache.k.shape[2]
+    starts = list(cache.lengths_host)
+    assert all(start + s <= max_len for start in starts)
+    cos, sin = D._position_tables(config, positions)
+    kj = torch.arange(max_len)
+    cache_mask = torch.where(
+        kj[None, :] < cache.lengths[:, None], 0.0, -1e30
+    ).to(torch.float32)[:, None, None, :]
+    new_dev = torch.tensor(list(new_lengths), dtype=torch.int32)
+    chunk_mask = causal_mask(s, s) + length_mask(s, new_dev)
+    stacked = params["layers_stacked"]
+    x = input_embeds
+    for idx in range(D.num_stacked_layers(stacked)):
+        x, k, v = D._layer_body(
+            config, x, D._pick_layer(stacked, idx), cos, sin, chunk_mask,
+            cache.k[idx], cache.v[idx], cache_mask,
+        )
+        for row, start in enumerate(starts):
+            cache.k[idx, row, start:start + s] = k[row].to(cache.k.dtype)
+            cache.v[idx, row, start:start + s] = v[row].to(cache.v.dtype)
+    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    _reference_set_lengths(cache, [a + n for a, n in zip(starts, new_lengths)])
+    rows = torch.arange(x.shape[0])
+    last = torch.tensor([max(n - 1, 0) for n in new_lengths])
+    return D.lm_logits(config, params, x[rows, last][:, None])[:, 0], cache
+
+
+def _reference_lookahead_decode(config, params, first_logits, start_position, cache,
+                                constraint, forced_token, forced_state, num_windows, window,
+                                draw_uniforms=None, temperature=None, eos_id=None):
+    from vis_tpu_torch.models.common.decoder import TokenPicker
+    from vis_tpu_torch.models.common.layers import embed
+
+    def extend(w_tokens, pos_mat, cache, valid_len):
+        embeds = embed(w_tokens, params["embed_tokens"])
+        positions = (pos_mat[None].expand(3, *pos_mat.shape)
+                     if config.mrope_section is not None else pos_mat)
+        return _reference_extend_scan(config, params, embeds, positions, cache, valid_len)
+
+    b = first_logits.shape[0]
+    pos = torch.as_tensor(start_position, dtype=torch.int32).expand(b).clone()
+    offs = torch.arange(window, dtype=torch.int32)
+    fill = eos_id if eos_id is not None else 0
+    tokens_out = torch.full((b, num_windows, window), fill, dtype=torch.int64)
+    valid_out = torch.zeros((b, num_windows, window), dtype=torch.bool)
+    done = torch.zeros((b,), dtype=torch.bool)
+    logits = first_logits
+    picker = TokenPicker(constraint, draw_uniforms, temperature)
+    for win in range(num_windows):
+        if eos_id is not None and bool(done.all()):
+            break
+        t0 = picker(logits)
+        con = picker.constraint
+        state, remaining = con.state, con.remaining
+        alive = torch.ones((b,), dtype=torch.bool)
+        chain_toks, chain_ok = [], []
+        for _ in range(window - 1):
+            ft = forced_token[state.long()]
+            ok = alive & (ft >= 0)
+            chain_toks.append(torch.where(ok, ft, 0).to(torch.int64))
+            chain_ok.append(ok)
+            state = torch.where(ok, forced_state[state.long()].to(state.dtype), state)
+            remaining = remaining - ok.to(remaining.dtype)
+            alive = ok
+        picker.constraint = con._replace(state=state, remaining=remaining)
+        w_tokens = torch.stack([t0] + chain_toks, dim=1)
+        w_valid = torch.stack([torch.ones_like(alive)] + chain_ok, dim=1)
+        host = torch.cat([w_tokens, w_valid.to(torch.int64)], dim=1)
+        h_tokens, h_valid = host[:, :window], host[:, window:].bool()
+        valid_len = h_valid.sum(dim=1).tolist()
+        prev_lengths, prev_pos = list(cache.lengths_host), pos
+        logits, cache = extend(w_tokens, pos[:, None] + offs[None, :], cache, valid_len)
+        pos = pos + torch.tensor(valid_len, dtype=torch.int32)
+        if eos_id is not None:
+            h_valid = h_valid & ~done[:, None]
+            if bool(done.any()):
+                frozen = done.tolist()
+                _reference_set_lengths(cache, [p if f else n for p, n, f in
+                                               zip(prev_lengths, cache.lengths_host, frozen)])
+                pos = torch.where(done, prev_pos, pos)
+            done = done | (h_valid & (h_tokens == eos_id)).any(dim=1)
+        tokens_out[:, win] = h_tokens
+        valid_out[:, win] = h_valid
+    return tokens_out, valid_out, logits, cache, picker.constraint
+
+
+def _window_models():
+    """(name, config, params): the tiny Qwen2.5-VL text stack (M-RoPE) and
+    the tiny Llama (llama3 RoPE scaling) at vocab 512, so the byte
+    tokenizer's schema tables fit, in the engines' fused layout."""
+    from vis_tpu_torch.models.common.decoder import (
+        fuse_stacked_projections,
+        init_decoder_params,
+        stack_decoder_layers,
+    )
+    from vis_tpu_torch.models.llama.config import llama_tiny
+    from vis_tpu_torch.models.qwen2_5_vl.config import Qwen25VLConfig
+
+    for name, cfg in (("qwen", Qwen25VLConfig.tiny().text),
+                      ("llama", dataclasses.replace(llama_tiny(), vocab_size=512))):
+        gen = torch.Generator()
+        gen.manual_seed(11)
+        params = fuse_stacked_projections(stack_decoder_layers(
+            init_decoder_params(cfg, gen, scale=0.2)))
+        yield name, cfg, params
+
+
+def _cache_bytes(cache):
+    return {"k": _np(cache.k), "v": _np(cache.v), "lengths": cache.lengths.numpy(),
+            "lengths_host": np.array(cache.lengths_host)}
+
+
+def _window_body(cfg, params, window: int, schedule, frozen_after: int):
+    """Two rows at different cursors through windows of ``schedule``'s
+    valid lengths, a ``WindowPass`` on one cache and the reference
+    extend_scan on its twin; after window ``frozen_after`` row 1 freezes
+    (its cursor and position put back, as lookahead_decode does).  Then a
+    16-token chunk through extend_scan on both."""
+    from vis_tpu_torch.models.common.decoder import WindowPass, extend_scan, prefill_scan
+    from vis_tpu_torch.models.common.layers import embed
+
+    b, s_pad, prompt_lengths = 2, 32, [13, 29]
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    ids = torch.randint(0, 256, (b, s_pad), generator=gen)
+    new, ref = _cache(cfg, b, 96), _cache(cfg, b, 96)
+    for cache in (new, ref):
+        prefill_scan(cfg, params, embed(ids, params["embed_tokens"]),
+                     torch.arange(s_pad, dtype=torch.int32)[None].expand(b, s_pad), cache,
+                     prompt_lengths)
+    runner = WindowPass(cfg, params, new, window)
+    pos = torch.tensor(prompt_lengths, dtype=torch.int32)
+    out = {}
+    for w, lens in enumerate(schedule):
+        tokens = torch.randint(0, 256, (b, window), generator=gen)
+        valid = torch.arange(window)[None, :] < torch.tensor(lens)[:, None]
+        pos_mat = pos[:, None] + torch.arange(window, dtype=torch.int32)[None, :]
+        prev_lengths, prev_pos = list(new.lengths_host), pos
+        out[f"new/logits{w}"] = _np(runner(tokens, valid, pos_mat, new, list(lens))[0])
+        ref_pos = pos_mat[None].expand(3, b, window) if cfg.mrope_section else pos_mat
+        out[f"ref/logits{w}"] = _np(_reference_extend_scan(
+            cfg, params, embed(tokens, params["embed_tokens"]), ref_pos, ref, list(lens))[0])
+        pos = pos + valid.sum(dim=1, dtype=torch.int32)
+        if w == frozen_after:
+            kept = [new.lengths_host[0], prev_lengths[1]]
+            new.set_lengths(kept)
+            _reference_set_lengths(ref, kept)
+            pos = torch.where(torch.tensor([False, True]), prev_pos, pos)
+    out["bound"] = np.array(runner.binds(new, params, window))
+    chunk = torch.randint(0, 256, (b, 16), generator=gen)
+    chunk_pos = pos[:, None] + torch.arange(16, dtype=torch.int32)[None, :]
+    if cfg.mrope_section:
+        chunk_pos = chunk_pos[None].expand(3, b, 16)
+    embeds = embed(chunk, params["embed_tokens"])
+    out["new/chunk"] = _np(extend_scan(cfg, params, embeds, chunk_pos, new, [16, 9])[0])
+    out["ref/chunk"] = _np(_reference_extend_scan(cfg, params, embeds, chunk_pos, ref,
+                                                  [16, 9])[0])
+    for side, cache in (("new", new), ("ref", ref)):
+        for key, value in _cache_bytes(cache).items():
+            out[f"{side}/{key}"] = value
+    return out
+
+
+def _window_decode(cfg, params, rows: int, mode: str, num_windows: int, window: int):
+    """One schema request's lookahead decode on both sides, chained call
+    after call as ``Engine._lookahead_decode`` chains them (a host
+    position, the last logits and the DFA carried over), until every row
+    is done: ``decode_loop_lookahead`` (a ``WindowPass`` held by the cache)
+    and the reference.  Two rows get budgets far apart, so the first
+    freezes while the second decodes on.  Sampled picks draw each side's
+    uniforms from a generator seeded alike."""
+    from vis_tpu_torch.models.common.decoder import (
+        DecodeConstraint,
+        decode_loop_lookahead,
+        prefill_scan,
+    )
+    from vis_tpu_torch.models.common.layers import embed
+    from vis_tpu_torch.serving.engine import load_constraint_tables, request_uniforms
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer(vocab_size=cfg.vocab_size)
+    ok_t, trans_t, cost_t, cls_t, tables = load_constraint_tables(
+        tok, cfg.vocab_size, "inspection", "cpu")
+    forced_tok = torch.from_numpy(tables.forced_token)
+    forced_state = torch.from_numpy(tables.forced_state)
+    budgets = [tables.min_budget + 8, tables.min_budget + 72][:rows]
+    s_pad, prompt_lengths = 32, [24, 31][:rows]
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    ids = torch.randint(0, 256, (rows, s_pad), generator=gen)
+    max_len = -(-(s_pad + max(budgets) + 32) // 64) * 64
+    out = {}
+    for side in ("new", "ref"):
+        cache = _cache(cfg, rows, max_len)
+        logits, cache = prefill_scan(
+            cfg, params, embed(ids, params["embed_tokens"]),
+            torch.arange(s_pad, dtype=torch.int32)[None].expand(rows, s_pad), cache,
+            prompt_lengths)
+        full = torch.full((rows,), tables.init_state, dtype=torch.int64)
+        budget = torch.tensor(budgets, dtype=torch.int64)
+        con = DecodeConstraint(token_ok=ok_t, token_trans=trans_t, cost_after=cost_t,
+                               class_of=cls_t, state=full, remaining=budget,
+                               active=torch.ones((rows,), dtype=torch.bool),
+                               min_remaining=budget)
+        draw = request_uniforms("cpu") if mode == "sampled" else None
+        temperature = 0.7 if mode == "sampled" else None
+        decode = decode_loop_lookahead if side == "new" else _reference_lookahead_decode
+        pos, calls, all_tokens, all_valid = torch.tensor(prompt_lengths), 0, [], []
+        done = np.zeros(rows, bool)
+        while not done.all():
+            tokens, valid, logits, cache, con = decode(
+                cfg, params, logits, pos, cache, con, forced_tok, forced_state, num_windows,
+                window, draw_uniforms=draw, temperature=temperature, eos_id=tok.eos_id)
+            all_tokens.append(tokens.numpy())
+            all_valid.append(valid.numpy())
+            ended = ((tokens == tok.eos_id) & valid).flatten(1).any(dim=1).numpy()
+            done |= ended
+            pos = pos + valid.flatten(1).sum(dim=1)
+            calls += 1
+            assert calls < 400, "no EOS"
+        out[f"{side}/tokens"] = np.concatenate(all_tokens, axis=1)
+        out[f"{side}/valid"] = np.concatenate(all_valid, axis=1)
+        out[f"{side}/logits"] = _np(logits)
+        out[f"{side}/calls"] = np.array(calls)
+        for key, value in _cache_bytes(cache).items():
+            out[f"{side}/{key}"] = value
+        if side == "new":
+            out["new/windows"] = np.array(cache.window_pass.windows)
+    return out
+
+
+def case_window_pass(inp):
+    cases = json.loads(str(inp["cases"]))
+    out = {}
+    for name, cfg, params in _window_models():
+        for key, value in _window_body(cfg, params, cases["window"], **cases["body"]).items():
+            out[f"{name}/body/{key}"] = value
+        for rows, mode, num_windows in cases["decode"]:
+            got = _window_decode(cfg, params, rows, mode, num_windows, cases["window"])
+            for key, value in got.items():
+                out[f"{name}/decode{rows}_{mode}/{key}"] = value
+    return out
+
+
+def _stand_in_window_pass(window_pass):
+    """``window_pass`` (``decoder.WindowPass``) on the card's path, on a CPU
+    cache: the first window warms up, the second is captured into a
+    stand-in graph whose replay runs the pass eagerly, and every later
+    window replays it."""
+    from types import SimpleNamespace
+
+    class StandIn(window_pass):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.on_card = True
+
+        def _warm_up(self):
+            self._run()
+
+        def _capture(self):
+            self.graph = SimpleNamespace(replay=self._run)
+
+    return StandIn
+
+
 def case_trace(inp):
     """The program's span records on the tiny text profile: lookahead
     requests (greedy and sampled) with no profiler and under a CPU
     profiler, beside the benchmark's own counts (its ``Recorder``); a chat
-    turn and the engine's counters; a scheduler run of three requests."""
+    turn and the engine's counters; the lookahead requests again on the
+    card's path (``_stand_in_window_pass``); a scheduler run of three
+    requests."""
     import threading
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
     from bench_torch.harness.record import Recorder
+    from vis_tpu_torch.models.common import decoder as D
     from vis_tpu_torch.models.llama.config import llama_tiny
     from vis_tpu_torch.serving import engine as E
     from vis_tpu_torch.serving import scheduler as S
@@ -1932,6 +2218,19 @@ def case_trace(inp):
                        "wall": time.perf_counter() - t0}
         times["profiled"].append(time.time_ns())
     out["on_timings"] = {k: len(v) for k, v in get_timings(reset=True).items()}
+
+    real_pass = D.WindowPass
+    D.WindowPass = _stand_in_window_pass(real_pass)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            times["replayed"] = [time.time_ns()]
+            for name, temperature in (("greedy", 0.0), ("sampled", 0.7)):
+                t0 = time.time_ns()
+                engine.generate(f"inspect {name} replayed", temperature=temperature, **schema)
+                times[f"replayed_{name}"] = [t0, time.time_ns()]
+            times["replayed"].append(time.time_ns())
+    finally:
+        D.WindowPass = real_pass
 
     batched = dataclasses.replace(settings, decode_batch_size=3, paged_kv_cache=True,
                                   kv_pool_tokens=4096, scheduler_decode_chunk=16)

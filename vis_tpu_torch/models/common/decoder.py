@@ -4,15 +4,17 @@ Counterpart of the scan-execution half of ``vis_tpu/models/common/decoder.py``.
 Layer parameters are stacked ([L, ...] leaves, int4 leaves as
 ``QuantizedWeight4`` with q [L, O, I/2]); a Python loop over layers takes
 the place of ``lax.scan``, and ``_pick_layer`` hands each layer's int4
-weights to kernel A as a view of the stack.  Cache cursors are kept on the
-host too, so writing a chunk's K/V never reads the device.
+weights to kernel A as a view of the stack.  Cache cursors live on the
+device, where a chunk's K/V store and the cursors' advance read and write
+them, with a host mirror for the host's own bookkeeping.
 
 Decode over a dense per-request cache is ``decode_loop_scan`` (greedy),
 ``decode_loop_scan_sampled`` (Gumbel-max) and
 ``decode_loop_scan_constrained`` (a grammar mask, greedy or sampled), one
 token per weight pass, and ``decode_loop_lookahead``: schema-constrained
 windows of ``window`` tokens, one weight pass and one host sync per
-window.  Decode over the scheduler's paged KV pool is ``decode_loop_paged``
+window, the pass replayed as a CUDA graph on the card (``WindowPass``).
+Decode over the scheduler's paged KV pool is ``decode_loop_paged``
 (greedy) and ``decode_loop_paged_constrained`` (a per-row grammar over
 stacked tables, greedy or per-row Gumbel-sampled), one token per weight
 pass for every slot at once.  Every token-per-pass loop runs on the
@@ -22,6 +24,8 @@ pass for every slot at once.  Every token-per-pass loop runs on the
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,6 +45,7 @@ from vis_tpu_torch.models.common.layers import (
     swiglu_mlp,
 )
 from vis_tpu_torch.utils.logger import span, synced
+from vis_tpu_torch.ops._kernels import add_launches, captured_launches
 from vis_tpu_torch.ops.quantized import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -386,34 +391,63 @@ def extend_scan(
     chunk attends jointly over each row's valid cached keys and itself, its
     K/V (padding included) land at each row's cursor, and the cursors move
     by the true lengths.  Returns the last valid position's logits."""
-    s = input_embeds.shape[1]
+    starts = _check_room(cache, input_embeds.shape[1])
+    n_valid = synced(torch.tensor, list(new_lengths), dtype=torch.int32,
+                     device=input_embeds.device)
+    logits = _extend_pass(config, params, input_embeds, positions, n_valid,
+                          cache.k, cache.v, cache.lengths)
+    cache.lengths_host = [a + n for a, n in zip(starts, new_lengths)]
+    return logits, cache
+
+
+def _check_room(cache: KVCache, s: int) -> list:
+    """The host cursors, once each row has room for an s-token chunk."""
     max_len = cache.k.shape[2]
     starts = list(cache.lengths_host)
     if any(start + s > max_len for start in starts):
         raise ValueError(
             f"a {s}-token chunk at cursors {starts} overruns the {max_len}-token cache"
         )
-    device = input_embeds.device
+    return starts
+
+
+def _extend_pass(
+    config: DecoderConfig, params: Params, x: torch.Tensor, positions: torch.Tensor,
+    n_valid: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor,
+    lengths: torch.Tensor,
+) -> torch.Tensor:
+    """The weight pass of ``extend_scan`` and of a lookahead window, which
+    reads no host value and so can be captured as a CUDA graph: the chunk x
+    [b, s, hidden] attends jointly over each row's cached keys below its
+    cursor ``lengths`` [b] and over itself up to its valid length
+    ``n_valid`` [b]; after the stack every layer's K/V of the whole chunk
+    (padding included) lands at (row, cursor + 0..s-1) in one indexed store
+    per tensor, and the cursors move by ``n_valid`` in place.  Returns the
+    last valid position's logits [b, vocab]."""
+    b, s = x.shape[:2]
+    device = x.device
     cos, sin = _position_tables(config, positions)
-    kj = torch.arange(max_len, device=device)
-    cache_mask = torch.where(
-        kj[None, :] < cache.lengths[:, None], 0.0, -1e30
-    ).to(torch.float32)[:, None, None, :]
-    new_dev = synced(torch.tensor, list(new_lengths), dtype=torch.int32, device=device)
-    chunk_mask = causal_mask(s, s, device) + length_mask(s, new_dev)
+    kj = torch.arange(cache_k.shape[2], device=device)
+    cache_mask = torch.where(kj[None, :] < lengths[:, None], 0.0, -1e30).to(
+        torch.float32)[:, None, None, :]
+    chunk_mask = causal_mask(s, s, device) + length_mask(s, n_valid)
     stacked = params["layers_stacked"]
-    x = input_embeds
+    new_k, new_v = [], []
     for idx in range(num_stacked_layers(stacked)):
         x, k, v = _layer_body(
             config, x, _pick_layer(stacked, idx), cos, sin, chunk_mask,
-            cache.k[idx], cache.v[idx], cache_mask,
+            cache_k[idx], cache_v[idx], cache_mask,
         )
-        for row, start in enumerate(starts):
-            cache.k[idx, row, start:start + s] = k[row].to(cache.k.dtype)
-            cache.v[idx, row, start:start + s] = v[row].to(cache.v.dtype)
+        new_k.append(k)
+        new_v.append(v)
     x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
-    cache.set_lengths([a + n for a, n in zip(starts, new_lengths)])
-    return _last_logits(config, params, x, new_lengths), cache
+    rows = torch.arange(b, device=device)
+    cols = lengths.long()[:, None] + torch.arange(s, device=device)[None, :]
+    cache_k[:, rows[:, None], cols] = torch.stack(new_k).to(cache_k.dtype)
+    cache_v[:, rows[:, None], cols] = torch.stack(new_v).to(cache_v.dtype)
+    lengths.add_(n_valid.to(lengths.dtype))
+    last = torch.clamp_min(n_valid.long() - 1, 0)
+    return lm_logits(config, params, x[rows, last][:, None])[:, 0]
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +561,112 @@ class TokenPicker:
 # Lookahead decode
 # ---------------------------------------------------------------------------
 
+# One capture at a time in the process: the dual-VLM node's two engines
+# each capture their requests' windows from their own threads.
+_CAPTURE_LOCK = threading.Lock()
+# Each thread's side stream per device, for warm-ups and captures: a graph
+# is captured off the legacy default stream, two threads never capture on
+# one stream, and cuBLAS keeps one workspace per (handle, stream) for good.
+_SIDE_STREAMS = threading.local()
+
+
+def _side_stream(device: torch.device):
+    streams = _SIDE_STREAMS.__dict__.setdefault("by_device", {})
+    if device not in streams:
+        streams[device] = torch.cuda.Stream(device)
+    return streams[device]
+
+
+class WindowPass:
+    """One request's lookahead window pass, ``lookahead_decode``'s
+    ``extend``, run from static buffers: each window's tokens [b, window]
+    int64, valid mask [b, window] bool and positions [b, window] int32 are
+    copied in on the device, and ``_extend_pass`` runs the embedded window
+    against the cache's k, v and cursors, bound once (the cursors are only
+    ever written in place), leaving the last valid logits [b, vocab] in
+    ``logits`` until the next window.
+
+    On a CUDA cache the first window runs eagerly on a side stream (the
+    warm-up: lazy allocations and library workspaces), the second is
+    captured there as a CUDA graph (``capture_s`` seconds), and it and
+    every later window replay the graph, each replay a ``decode.replay``
+    span: one host launch for all the stack's kernels (~2,200 a
+    Qwen2.5-VL-7B window), each still counted in its wrapper's
+    ``launches``.  On a CPU cache every window runs eagerly."""
+
+    def __init__(self, config: DecoderConfig, params: Params, cache: KVCache, window: int):
+        b, device = cache.k.shape[1], cache.k.device
+        self.config, self.params, self.window = config, params, window
+        self.k, self.v, self.lengths = cache.k, cache.v, cache.lengths
+        self.tokens = torch.zeros((b, window), dtype=torch.int64, device=device)
+        self.valid = torch.zeros((b, window), dtype=torch.bool, device=device)
+        self.positions = torch.zeros((b, window), dtype=torch.int32, device=device)
+        self.logits: Optional[torch.Tensor] = None
+        self.on_card = device.type == "cuda"
+        self.graph = None
+        self.launched: dict = {}  # the kernels' launches in one replay
+        self.capture_s: Optional[float] = None
+        self.windows = 0
+
+    def binds(self, cache: KVCache, params: Params, window: int) -> bool:
+        return (cache.k is self.k and cache.v is self.v and cache.lengths is self.lengths
+                and params is self.params and window == self.window)
+
+    def _run(self) -> None:
+        positions = self.positions
+        if self.config.mrope_section is not None:
+            positions = positions[None].expand(3, *positions.shape)
+        x = embed(self.tokens, self.params["embed_tokens"])
+        self.logits = _extend_pass(self.config, self.params, x, positions,
+                                   self.valid.sum(dim=1), self.k, self.v, self.lengths)
+
+    def _warm_up(self) -> None:
+        main = torch.cuda.current_stream(self.k.device)
+        side = _side_stream(self.k.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._run()
+        main.wait_stream(side)
+
+    def _capture(self) -> None:
+        """The pass as a CUDA graph, captured on the thread's side stream.
+        By hand rather than through ``torch.cuda.graph``, which synchronizes
+        the device and empties the allocator's caches before each capture:
+        here once a request, beside the other engine's work."""
+        graph = torch.cuda.CUDAGraph()
+        start = time.perf_counter()
+        with _CAPTURE_LOCK, captured_launches() as launched, \
+                torch.cuda.stream(_side_stream(self.k.device)):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self._run()
+            finally:
+                graph.capture_end()
+        self.capture_s = time.perf_counter() - start
+        self.graph, self.launched = graph, launched
+
+    def __call__(self, w_tokens: torch.Tensor, w_valid: torch.Tensor,
+                 positions: torch.Tensor, cache: KVCache,
+                 valid_len: Sequence[int]) -> Tuple[torch.Tensor, KVCache]:
+        starts = _check_room(cache, self.window)
+        self.tokens.copy_(w_tokens)
+        self.valid.copy_(w_valid)
+        self.positions.copy_(positions)
+        if not self.on_card:
+            self._run()
+        elif self.windows == 0:
+            self._warm_up()
+        else:
+            if self.graph is None:
+                self._capture()
+            with span("decode.replay", timed=False):
+                self.graph.replay()
+            add_launches(self.launched)
+        self.windows += 1
+        cache.lengths_host = [a + n for a, n in zip(starts, valid_len)]
+        return self.logits, cache
+
+
 def decode_loop_lookahead(
     config: DecoderConfig, params: Params, first_logits: torch.Tensor,
     start_position, cache: KVCache, constraint: DecodeConstraint,
@@ -536,24 +676,25 @@ def decode_loop_lookahead(
     temperature=None, eos_id: Optional[int] = None,
 ):
     """``lookahead_decode`` through this decoder's stack: each window is
-    one ``extend_scan`` pass (M-RoPE positions repeat the window's
-    positions on all three axes)."""
-    def extend(w_tokens, pos_mat, cache, valid_len):
-        embeds = embed(w_tokens, params["embed_tokens"])
-        positions = (pos_mat[None].expand(3, *pos_mat.shape)
-                     if config.mrope_section is not None else pos_mat)
-        return extend_scan(config, params, embeds, positions, cache, valid_len)
-
-    return lookahead_decode(first_logits, start_position, cache, constraint, forced_token,
-                            forced_state, num_windows, window, extend, draw_uniforms,
-                            temperature, eos_id)
+    one pass of the cache's ``WindowPass`` (M-RoPE positions repeat the
+    window's positions on all three axes), which the cache keeps for every
+    later call of the request: on the card its windows after the first
+    replay one CUDA graph.  The last logits returned are a copy, free of
+    the next window's."""
+    runner = cache.window_pass
+    if runner is None or not runner.binds(cache, params, window):
+        runner = cache.window_pass = WindowPass(config, params, cache, window)
+    tokens, valid, logits, cache, constraint = lookahead_decode(
+        first_logits, start_position, cache, constraint, forced_token, forced_state,
+        num_windows, window, runner, draw_uniforms, temperature, eos_id)
+    return tokens, valid, logits.clone(), cache, constraint
 
 
 def lookahead_decode(
     first_logits: torch.Tensor, start_position, cache: KVCache,
     constraint: DecodeConstraint, forced_token: torch.Tensor,
     forced_state: torch.Tensor, num_windows: int, window: int,
-    extend: Callable[[torch.Tensor, torch.Tensor, KVCache, Sequence[int]],
+    extend: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, KVCache, Sequence[int]],
                      Tuple[torch.Tensor, KVCache]],
     draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
     temperature=None, eos_id: Optional[int] = None,
@@ -564,15 +705,17 @@ def lookahead_decode(
     sampling at ``temperature`` with uniforms from ``draw_uniforms(shape)``),
     follow the DFA's forced moves for positions 1.. (``forced_token`` /
     ``forced_state``, -1 where the state has a choice), then run the window
-    through the model in one pass, ``extend(tokens [b, window], positions
-    [b, window], cache, valid lengths) -> (last valid logits, cache)``,
-    which writes the window's K/V at each row's cursor and moves the
-    cursors by the valid lengths.  The window's tokens come to the host
-    once; with ``eos_id`` a row is done once its valid span holds EOS, its
-    cursor and position freeze, and the loop stops when every row is done.
-    Each window is one ``decode.pass`` span, and each of its blocking
-    transfers a ``sync`` one (five a window through ``extend_scan``, six
-    with a float temperature).
+    through the model in one pass, ``extend(tokens [b, window], valid
+    [b, window], positions [b, window], cache, valid lengths as a host
+    list) -> (last valid logits, cache)``, which writes the window's K/V at
+    each row's cursor and moves the cursors (device and host mirror) by the
+    valid lengths.  The window's tokens come to the host once; with
+    ``eos_id`` a row is done once its valid span holds EOS, its cursor and
+    position freeze, and the loop stops when every row is done.  Each
+    window is one ``decode.pass`` span, and each of its blocking transfers
+    a ``sync`` one (through ``decode_loop_lookahead`` only the window's
+    read-back; a sampled call sends its temperature once, before the
+    first window).
 
     Returns (tokens [b, num_windows, window], valid [b, num_windows, window]
     on the host, last logits, cache, constraint).
@@ -586,7 +729,13 @@ def lookahead_decode(
     valid_out = torch.zeros((b, num_windows, window), dtype=torch.bool)
     done = torch.zeros((b,), dtype=torch.bool)
     logits = first_logits
+    if draw_uniforms is not None:  # one transfer a call, not one a window
+        temperature = _to_device(temperature, torch.float32, device)
     picker = TokenPicker(constraint, draw_uniforms, temperature)
+    # The forced tables in the chain's dtypes, once a call: the chain's
+    # launches are the host's work between two replays.
+    forced_token = forced_token.long()
+    forced_state = forced_state.to(constraint.state.dtype)
 
     for win in range(num_windows):
         if eos_id is not None and bool(done.all()):
@@ -594,28 +743,30 @@ def lookahead_decode(
         with span("decode.pass", timed=False):
             t0 = picker(logits)
             con = picker.constraint
-            state, remaining = con.state, con.remaining
+            state = con.state
             alive = torch.ones((b,), dtype=torch.bool, device=device)
             chain_toks, chain_ok = [], []
             for _ in range(window - 1):
-                ft = forced_token[state.long()]
+                ft = forced_token[state]
                 ok = alive & (ft >= 0)
-                chain_toks.append(torch.where(ok, ft, 0).to(torch.int64))
+                chain_toks.append(torch.where(ok, ft, 0))
                 chain_ok.append(ok)
-                state = torch.where(ok, forced_state[state.long()].to(state.dtype), state)
-                remaining = remaining - ok.to(remaining.dtype)
+                state = torch.where(ok, forced_state[state], state)
                 alive = ok
-            picker.constraint = con._replace(state=state, remaining=remaining)
             w_tokens = torch.stack([t0] + chain_toks, dim=1)
             w_valid = torch.stack([torch.ones_like(alive)] + chain_ok, dim=1)
+            forced_n = w_valid.sum(dim=1) - 1
+            picker.constraint = con._replace(
+                state=state, remaining=con.remaining - forced_n.to(con.remaining.dtype))
 
             host = synced(torch.cat([w_tokens, w_valid.to(torch.int64)], dim=1).cpu)
             h_tokens, h_valid = host[:, :window], host[:, window:].bool()
             valid_len = h_valid.sum(dim=1).tolist()
 
             prev_lengths, prev_pos = list(cache.lengths_host), pos
-            logits, cache = extend(w_tokens, pos[:, None] + offs[None, :], cache, valid_len)
-            pos = pos + synced(torch.tensor, valid_len, dtype=torch.int32, device=device)
+            logits, cache = extend(w_tokens, w_valid, pos[:, None] + offs[None, :], cache,
+                                   valid_len)
+            pos = pos + w_valid.sum(dim=1, dtype=torch.int32)
 
             if eos_id is not None:
                 h_valid = h_valid & ~done[:, None]
@@ -722,7 +873,7 @@ def _dense_loop(
         return token
 
     tokens = _eos_loop(b, num_steps, eos_id, budget, step, device)
-    cache.lengths = carry["lengths"]
+    cache.lengths.copy_(carry["lengths"])
     cache.lengths_host = [n + carry["steps"] for n in cache.lengths_host]
     return tokens, carry["logits"]
 
@@ -881,6 +1032,7 @@ __all__ = [
     "DecodeConstraint",
     "DecoderConfig",
     "TokenPicker",
+    "WindowPass",
     "constrained_argmax",
     "constrained_pick",
     "decode_loop_lookahead",

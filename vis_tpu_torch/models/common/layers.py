@@ -190,12 +190,16 @@ class KVCache:
     k/v: [n_layers, batch, max_len, kv_heads, head_dim]; lengths [batch]
     int32 on the device, plus a host copy (``lengths_host``) so the decode
     loop never reads the cursor back from the device.  The port updates the
-    buffers in place (the JAX package's are immutable)."""
+    buffers in place (the JAX package's are immutable), the cursors too.
+    ``window_pass`` is the request's lookahead window pass
+    (``decoder.WindowPass``), which binds k, v and lengths and lives and
+    dies with the cache."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
     lengths_host: list
+    window_pass: Any = dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def create(cls, n_layers: int, batch: int, max_len: int, kv_heads: int,
@@ -209,9 +213,9 @@ class KVCache:
         )
 
     def set_lengths(self, lengths) -> None:
+        """Both cursors; the device's is written in place, never rebound."""
         self.lengths_host = [int(n) for n in lengths]
-        self.lengths = synced(torch.tensor, self.lengths_host, dtype=torch.int32,
-                              device=self.k.device)
+        synced(self.lengths.copy_, torch.tensor(self.lengths_host, dtype=torch.int32))
 
     def update(self, layer: int, k_new: torch.Tensor, v_new: torch.Tensor) -> None:
         """Write k/v [b, s, kvh, d] of ``layer`` at each row's cursor; the

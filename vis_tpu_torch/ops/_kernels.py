@@ -11,10 +11,16 @@ build anything.
 
 Every entry point returns a ``cudaError_t``; ``check`` raises on any
 non-zero value, so a refused launch never passes silently.
+
+Each wrapper's ``launches`` counts its kernel's launches
+(``count_launch``).  A thread that captures a CUDA graph launches nothing:
+inside ``captured_launches`` its wrappers' counts go to the capture's
+tally instead, which ``add_launches`` adds at each replay of the graph.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -55,6 +61,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_capturing = threading.local()  # .tally: this thread's capture's {wrapper: launches}
 build_seconds: Optional[float] = None  # wall time of this process's build
 
 
@@ -139,4 +146,33 @@ def stream_of(tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(tensor.device).cuda_stream)
 
 
-__all__ = ["library", "library_path", "check", "stream_of", "BUILD_DIR"]
+def count_launch(wrapper) -> None:
+    """One launch of ``wrapper``'s kernel: into ``wrapper.launches``, or
+    into the tally of the graph this thread is capturing."""
+    tally = getattr(_capturing, "tally", None)
+    if tally is None:
+        wrapper.launches += 1
+    else:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """The launches this thread records into a CUDA graph inside the
+    block, as {wrapper: launches}, kept out of the wrappers' counts."""
+    tally: dict = {}
+    _capturing.tally = tally
+    try:
+        yield tally
+    finally:
+        _capturing.tally = None
+
+
+def add_launches(tally: dict) -> None:
+    """One replay of a graph whose capture recorded ``tally``."""
+    for wrapper, n in tally.items():
+        wrapper.launches += n
+
+
+__all__ = ["library", "library_path", "check", "stream_of", "count_launch",
+           "captured_launches", "add_launches", "BUILD_DIR"]

@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from vis_tpu_torch.ops import _kernels
+
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 BLOCK = 64
 HEAD_DIMS = (64, 80)  # the Qwen2.5-VL towers: 80 at 7B, 64 in the small profile
@@ -61,7 +63,6 @@ def flash_attention(
         return flash_attention_reference(
             q, k, v, lengths, causal=causal, sm_scale=sm_scale
         )
-    from vis_tpu_torch.ops import _kernels
 
     b, sq, h, d = q.shape
     skv = k.shape[1]
@@ -95,7 +96,7 @@ def flash_attention(
             _kernels.stream_of(q),
         )
     _kernels.check(err, "vt_flash_attention")
-    flash_attention.launches += 1
+    _kernels.count_launch(flash_attention)
     return out
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from vis_tpu_torch.ops import _kernels
 from vis_tpu_torch.ops.quantized import MAX_KERNEL_ROWS
 
 
@@ -61,7 +62,6 @@ def u8_sum(q: torch.Tensor) -> torch.Tensor:
     wrapping mod 2^32."""
     if q.device.type == "cpu":
         return u8_sum_plain(q)
-    from vis_tpu_torch.ops import _kernels
 
     if q.dtype != torch.uint8:
         raise TypeError(f"byte sum wants u8, got {q.dtype}")
@@ -75,7 +75,7 @@ def u8_sum(q: torch.Tensor) -> torch.Tensor:
         err = _kernels.library().vt_u8_sum(q.data_ptr(), q.numel(), out.data_ptr(),
                                            _kernels.stream_of(q))
     _kernels.check(err, "vt_u8_sum")
-    u8_sum.launches += 1
+    _kernels.count_launch(u8_sum)
     return out
 
 
@@ -129,7 +129,6 @@ def _launch(entry: str, x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     """Checks the operands of an int8-activation matvec (x [B, scale_rows *
     W], q [O, W] of ``q_dtype``, scale [scale_rows, O] f32) and launches
     ``entry``; returns y [B, O] f32."""
-    from vis_tpu_torch.ops import _kernels
 
     if x.dtype != torch.int8 or q.dtype != q_dtype or scale.dtype != torch.float32:
         raise TypeError(f"{entry} wants int8 x / {q_dtype} q / f32 scale, got {x.dtype} / "
@@ -166,7 +165,7 @@ def i8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     if x.device.type == "cpu":
         return i8_matmul_plain(x, q, scale)
     y = _launch("vt_i8_matmul", x, q, scale, torch.int8, 1)
-    i8_matmul.launches += 1
+    _kernels.count_launch(i8_matmul)
     return y
 
 
@@ -179,7 +178,7 @@ def q4_i8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch
     if x.device.type == "cpu":
         return q4_i8_matmul_plain(x, q, scale)
     y = _launch("vt_q4_i8_matmul", x, q, scale, torch.uint8, 2)
-    q4_i8_matmul.launches += 1
+    _kernels.count_launch(q4_i8_matmul)
     return y
 
 
@@ -192,7 +191,7 @@ def q4_i8s_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torc
     if x.device.type == "cpu":
         return q4_i8s_matmul_plain(x, q, scale)
     y = _launch("vt_q4_i8s_matmul", x, q, scale, torch.uint8, 2)
-    q4_i8s_matmul.launches += 1
+    _kernels.count_launch(q4_i8s_matmul)
     return y
 
 

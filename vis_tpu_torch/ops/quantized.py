@@ -67,6 +67,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from vis_tpu_torch.ops import _kernels
+
 MAX_KERNEL_ROWS = 128
 
 
@@ -153,7 +155,6 @@ def _check_kernel_args(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 def _launch_q4(entry: str, x: torch.Tensor, q: torch.Tensor,
                scale: torch.Tensor, scale_shape=None) -> torch.Tensor:
-    from vis_tpu_torch.ops import _kernels
 
     xb = _check_kernel_args(x, q, scale, scale_shape)
     out_dim, half = q.shape
@@ -174,7 +175,7 @@ def q4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     if x.device.type == "cpu":
         return q4_matmul_plain(x, q, scale)
     y = _launch_q4("vt_q4_matmul", x, q, scale)
-    q4_matmul.launches += 1
+    _kernels.count_launch(q4_matmul)
     return y
 
 
@@ -188,7 +189,7 @@ def q4_matmul_stacked(x: torch.Tensor, pick: QuantizedWeight4Pick) -> torch.Tens
     if x.device.type == "cpu":
         return q4_matmul_plain(x, q, scale)
     y = _launch_q4("vt_q4_matmul", x, q, scale)
-    q4_matmul_stacked.launches += 1
+    _kernels.count_launch(q4_matmul_stacked)
     return y
 
 
@@ -273,7 +274,6 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     """Kernel D wrapper: x [B, I] . q^T * scale for an int8 weight -> [B, O] f32."""
     if x.device.type == "cpu":
         return q8_matmul_plain(x, q, scale)
-    from vis_tpu_torch.ops import _kernels
 
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
         raise TypeError(f"int8 kernel wants i8 q / f32 scale, got {q.dtype} / {scale.dtype}")
@@ -301,7 +301,7 @@ def q8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
             batch, out_dim, in_dim, _kernels.stream_of(x),
         )
     _kernels.check(err, "vt_q8_matmul")
-    q8_matmul.launches += 1
+    _kernels.count_launch(q8_matmul)
     return y
 
 
@@ -373,7 +373,6 @@ def fused_swiglu_mlp(x: torch.Tensor, gateup: QuantizedWeight,
     gq, gs, dq, ds = gateup.q, gateup.scale, down.q, down.scale
     if x.device.type == "cpu":
         return fused_swiglu_mlp_plain(flat, gq, gs, dq, ds).reshape(*lead, hidden)
-    from vis_tpu_torch.ops import _kernels
 
     if any(t.dtype != torch.int8 for t in (gq, dq)) or any(
             t.dtype != torch.float32 for t in (gs, ds)):
@@ -406,7 +405,7 @@ def fused_swiglu_mlp(x: torch.Tensor, gateup: QuantizedWeight,
             h.data_ptr(), y.data_ptr(), batch, hidden, inter, _kernels.stream_of(x),
         )
     _kernels.check(err, "vt_q8_swiglu")
-    fused_swiglu_mlp.launches += 1
+    _kernels.count_launch(fused_swiglu_mlp)
     return y.to(x.dtype).reshape(*lead, hidden)
 
 
@@ -451,7 +450,7 @@ def q4_matmul_folded(x: torch.Tensor, q: torch.Tensor, scale2: torch.Tensor) -> 
     if x.device.type == "cpu":
         return q4_matmul_folded_plain(x, q, scale2)
     y = _launch_q4("vt_q4_matmul_folded", x, q, scale2, (2, q.shape[0]))
-    q4_matmul_folded.launches += 1
+    _kernels.count_launch(q4_matmul_folded)
     return y
 
 
@@ -468,7 +467,7 @@ def q4_matmul_stacked_folded(x: torch.Tensor, q_stacked: torch.Tensor,
     if x.device.type == "cpu":
         return q4_matmul_folded_plain(x, q, scale2)
     y = _launch_q4("vt_q4_matmul_folded", x, q, scale2, (2, q.shape[0]))
-    q4_matmul_stacked_folded.launches += 1
+    _kernels.count_launch(q4_matmul_stacked_folded)
     return y
 
 
@@ -509,7 +508,7 @@ def i4_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     if x.device.type == "cpu":
         return i4_matmul_plain(x, q, scale)
     y = _launch_q4("vt_i4_matmul", x, q, scale, (1, q.shape[0]))
-    i4_matmul.launches += 1
+    _kernels.count_launch(i4_matmul)
     return y
 
 
@@ -586,7 +585,6 @@ def q4_fused_mlp_slab(x: torch.Tensor, gq2: torch.Tensor, gs2: torch.Tensor,
     sum) or raises on what it does not take."""
     if x.device.type == "cpu":
         return q4_fused_mlp_slab_plain(x, gq2, gs2, dq2, ds2, idx)
-    from vis_tpu_torch.ops import _kernels
 
     gq, gs, dq, ds = gq2[idx], gs2[idx], dq2[idx], ds2[idx]
     if gq.dtype != torch.uint8 or dq.dtype != torch.uint8 or any(
@@ -624,7 +622,7 @@ def q4_fused_mlp_slab(x: torch.Tensor, gq2: torch.Tensor, gs2: torch.Tensor,
             scratch.data_ptr(), y.data_ptr(), batch, hidden, n, bi, _kernels.stream_of(x),
         )
     _kernels.check(err, "vt_q4_fused_mlp")
-    q4_fused_mlp_slab.launches += 1
+    _kernels.count_launch(q4_fused_mlp_slab)
     return y
 
 

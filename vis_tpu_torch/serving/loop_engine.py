@@ -156,7 +156,7 @@ class LoopDecodeEngine:
         at the cursor (causal within the window, keys past the valid span
         masked), the cursor moved by the valid length, so the next window
         overwrites the padding's K/V."""
-        def extend(w_tokens, positions, cache: KVCache, valid_len):
+        def extend(w_tokens, w_valid, positions, cache: KVCache, valid_len):
             n, length0 = valid_len[0], cache.lengths_host[0]
             max_len = cache.k.shape[2]
             new_len = synced(torch.tensor, [length0 + n], dtype=torch.int32,
