@@ -1,11 +1,12 @@
 """The comparison that decides ``correct``: served tokens against the
 plain reference.
 
-A check item is one served sequence: an optional photo (resized by the
-reference's own copy of the served-size rule and bicubic resample), then pieces of
-token ids in order, each either context (a prompt) or served
-(an answer the program decoded greedily).  The reference remakes the
-weights from the item's seed, runs one float32 forward over the whole
+A check item is one served sequence: the inputs its model family reads
+(a photo for a VLM, resized by the reference's own copy of the served-size
+rule and bicubic resample), then pieces of token ids in order, each either
+context (a prompt) or served (an answer the program decoded greedily).
+The reference, the model family's (``families/<model_type>.py``), remakes
+the weights from the item's seed, runs one float32 forward over the whole
 sequence and reads, at every served position, the gap by which the served
 token's logit lies below the reference's best among the tokens that were
 legal there: every id for a free-form answer, the schema's legal bytes
@@ -29,13 +30,10 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from bench_torch.harness.photos import photo_array
+from bench_torch.families import family_of
 from bench_torch.harness.weights import make_weights
 from bench_torch.reference import grammar
-from bench_torch.reference.models import (
-    EXACT, FP8, exact_matmuls, mrope_positions, resize, served_size, text_embeds, text_logits,
-    vision_embeds,
-)
+from bench_torch.reference.primitives import EXACT, FP8, exact_matmuls
 
 LEGAL_WIDTH = 262  # byte ids and the tokenizer's specials
 
@@ -117,34 +115,6 @@ def _control_picks(ctl: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Ten
     return masked.argmax(dim=-1)
 
 
-def _sequence(model: Dict[str, Any], item: Dict[str, Any], weights, device):
-    """(embeds [n, h], positions, served pieces with their rows)."""
-    ids: List[int] = []
-    served = []
-    image = None
-    vc = model.get("vision_config")
-    if item.get("photo") is not None:
-        raw = torch.from_numpy(photo_array(item["photo"])).to(device)
-        p, m = vc["patch_size"], vc["spatial_merge_size"]
-        size = served_size(raw.shape[0], raw.shape[1], model["image_processor"], p * m)
-        image = resize(raw, *size)
-        gh, gw = size[0] // p, size[1] // p
-        n_img = (gh // m) * (gw // m)
-        ids = ([model["vision_start_token_id"]] + [model["image_token_id"]] * n_img
-               + [model["vision_end_token_id"]])
-    for piece in item["pieces"]:
-        if piece.get("served"):
-            served.append((piece, len(ids)))
-        ids.extend(piece["ids"])
-    ids_t = torch.tensor(ids, device=device)
-    embeds = text_embeds(weights["text"], ids_t)
-    if image is not None:
-        n_after = len(ids) - 1 - n_img
-        positions = mrope_positions(1, gh, gw, m, n_after).to(device)
-        return embeds, positions, served, image, ids_t
-    return embeds, torch.arange(len(ids), device=device), served, None, ids_t
-
-
 def compare(model: Dict[str, Any], items: List[Dict[str, Any]], device,
             control: bool = False) -> Dict[str, Any]:
     """Readings over ``items``: the widest gap, the served positions
@@ -156,23 +126,18 @@ def compare(model: Dict[str, Any], items: List[Dict[str, Any]], device,
     by_seed: Dict[int, List[Dict[str, Any]]] = {}
     for item in items:
         by_seed.setdefault(int(item["seed"]), []).append(item)
+    family = family_of(model)
     with exact_matmuls(), torch.no_grad():
         for seed, group in by_seed.items():
             weights = make_weights(model, seed, device)
             for item in group:
-                embeds, positions, served, image, ids_t = _sequence(model, item, weights, device)
+                seq = family.sequence(model, item, weights, device)
                 rows = torch.cat([torch.arange(start - 1, start - 1 + len(piece["ids"]),
-                                               device=device) for piece, start in served])
-                outs = []
-                for prec in [EXACT] + ([FP8] if control else []):
-                    x = embeds
-                    if image is not None:
-                        x = embeds.clone()
-                        x[ids_t == model["image_token_id"]] = vision_embeds(
-                            model["vision_config"], weights["vision"], image, prec)
-                    outs.append(text_logits(model, weights["text"], x, positions, rows, prec))
+                                               device=device) for piece, start in seq.served])
+                outs = [family.logits(model, weights, seq, rows, prec)
+                        for prec in [EXACT] + ([FP8] if control else [])]
                 off = 0
-                for piece, _ in served:
+                for piece, _ in seq.served:
                     n = len(piece["ids"])
                     mask_np, forced, bad = _legal_masks(piece, eos)
                     illegal += bad

@@ -5,7 +5,7 @@ A photo is a smooth lit surface (a colour gradient over a coarse random
 texture) with a few dark streaks and spots standing in for defects, at a
 camera's size.  The program resizes it to its served size on the device;
 the reference resizes ``photo_array(spec)`` with its own copy of the rule
-(``reference/models.py``).  PNG is lossless: the program decodes exactly
+(``families/qwen2_5_vl.py``).  PNG is lossless: the program decodes exactly
 ``photo_array(spec)``.
 """
 

@@ -7,6 +7,9 @@ metric or cell check sits in a file of its own, found by name:
   the model's sizes under ``model``, the serving settings under
   ``serving`` (environment of the program's config), a tiny profile for
   rehearsals under ``rehearsal``;
+- ``families/<model_type>.py``, by the ``model_type`` of the
+  configuration's ``model``: its architecture (seeded weights, the port's
+  config, the plain reference, the work arithmetic);
 - ``traffic/<mix>.json``: the mix's parameters and the ``driver`` that
   serves them (``drivers/<driver>.py``);
 - ``metrics/<metric>.py``: ``read(run) -> float | None``;
@@ -17,6 +20,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, List
@@ -26,8 +30,11 @@ ROOT = BENCH_DIR.parent
 
 
 def load_module(path: Path, name: str):
+    """The module in ``path``, put in ``sys.modules`` under ``name`` first, as
+    an import would, so that its dataclasses can resolve their annotations."""
     spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
     spec.loader.exec_module(module)
     return module
 
@@ -63,6 +70,9 @@ def load_cell(name: str, benchmark_path: Path = ROOT / "BENCHMARK.json") -> Cell
     configs = {c["name"]: c for c in bench["configs"]}
     cfg_entry = configs[w["config"]]
     config = json.loads((ROOT / cfg_entry["file"]).read_text())
+    from bench_torch.families import family_of
+
+    family_of(config["model"])  # a model_type without a family file stops here
     traffic = json.loads((BENCH_DIR / "traffic" / f"{w['traffic']}.json").read_text())
     limits = json.loads((BENCH_DIR / "checks" / f"{name}.json").read_text())
     return Cell(

@@ -23,14 +23,13 @@ def device_events(prof) -> Tuple[np.ndarray, np.ndarray, List[str]]:
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    starts, durs, names = [], [], []
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda:
-            starts.append(e.start_ns())
-            durs.append(e.duration_ns())
-            names.append(e.name())
-    s = np.asarray(starts, np.int64)
-    return s, s + np.asarray(durs, np.int64), names
+    events = [e for e in prof.profiler.kineto_results.events() if e.device_type() == cuda]
+    if not events:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64), []
+    kind, n = type(events[0]), len(events)
+    s = np.fromiter(map(kind.start_ns, events), np.int64, n)
+    return s, s + np.fromiter(map(kind.duration_ns, events), np.int64, n), \
+        list(map(kind.name, events))
 
 
 def union(starts: np.ndarray, ends: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -57,18 +56,20 @@ def total(starts, ends) -> int:
 
 
 def overlap(busy_s, busy_e, span_s, span_e) -> int:
-    """ns of the busy union inside the union of the spans."""
+    """ns of the busy union (sorted and disjoint, as ``union`` gives it)
+    inside the union of the spans: at each span's ends, the busy time
+    before it from a running sum of the busy intervals."""
     us, ue = union(np.asarray(span_s, np.int64), np.asarray(span_e, np.int64))
     if len(us) == 0 or len(busy_s) == 0:
         return 0
-    pts = np.unique(np.concatenate([busy_s, busy_e, us, ue]))
-    left, width = pts[:-1], np.diff(pts)
+    done = np.concatenate([[0], np.cumsum(busy_e - busy_s)])
 
-    def covered(s, e):
-        i = np.searchsorted(s, left, side="right") - 1
-        return (i >= 0) & (e[np.clip(i, 0, None)] > left)
+    def busy_before(t):
+        k = np.searchsorted(busy_s, t, side="right")  # intervals begun by t
+        last = np.clip(k - 1, 0, None)
+        return np.where(k > 0, done[last] + np.minimum(t, busy_e[last]) - busy_s[last], 0)
 
-    return int(width[covered(busy_s, busy_e) & covered(us, ue)].sum())
+    return int((busy_before(ue) - busy_before(us)).sum())
 
 
 def top_ops(starts, ends, names: Sequence[str], n: int = 10) -> List[list]:

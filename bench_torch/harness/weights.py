@@ -17,6 +17,8 @@ keeps the variance of its input (nibbles and bytes are uniform), norms are
 1 + 0.1 z and biases 0.02 z, so every layer moves the logits and the logits
 have a spread near one.  The head's row of the end-of-sequence id has
 scale 0: with random weights the budget, not the model, ends an answer.
+Which leaves a model has, and how the tree is finished, is its family's
+(``families/<model_type>.py``); the order of the leaves fixes the bytes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import math
 from typing import Any, Dict, List, Tuple
 
 import torch
+
+from bench_torch.families import family_of
 
 # Standard deviation of a weight uniform over -7..7 (int4) and -127..127
 # (int8): the symmetric ranges the program's quantizers produce.
@@ -115,73 +119,19 @@ def vocab_rows(vocab: int) -> int:
     return -(-vocab // 512) * 512
 
 
-def _text_plan(plan: _Plan, cfg: Dict[str, Any], head: str, qkv_bias: bool) -> None:
-    h, L = cfg["hidden_size"], cfg["num_hidden_layers"]
-    heads, kv = cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    hd = cfg.get("head_dim") or h // heads
-    inter, rows = cfg["intermediate_size"], vocab_rows(cfg["vocab_size"])
-    t = ("text",)
-    if head == "int4":
-        plan.int4(t + ("embed_tokens",), (), rows, h)
-        # Entries of standard deviation one: the embedding is not a projection.
-        plan.float_leaves[-1] = (t + ("embed_tokens", "s"), (rows, 2), "scale", 1.0 / SIGMA4)
-        plan.int4(t + ("lm_head",), (), rows, h)
-    else:
-        plan.int8(t + ("embed_tokens",), rows, h, 1.0)
-        plan.int8(t + ("lm_head",), rows, h, 1.0 / math.sqrt(h))
-    plan.norm(t + ("final_norm",), h)
-    ls = t + ("layers_stacked",)
-    plan.norm(ls + ("input_norm",), L, h)
-    plan.norm(ls + ("post_attn_norm",), L, h)
-    qkv_out = (heads + 2 * kv) * hd
-    plan.int4(ls + ("qkv_proj",), (L,), qkv_out, h)
-    if qkv_bias:
-        plan.bias(ls + ("qkv_bias",), L, qkv_out)
-    plan.int4(ls + ("o_proj",), (L,), h, heads * hd)
-    plan.int4(ls + ("mlp", "gateup_proj"), (L,), 2 * inter, h)
-    plan.int4(ls + ("mlp", "down_proj"), (L,), h, inter)
-
-
-def _vision_plan(plan: _Plan, vc: Dict[str, Any]) -> None:
-    d, inter = vc["hidden_size"], vc["intermediate_size"]
-    patch_dim = vc["in_chans"] * vc["temporal_patch_size"] * vc["patch_size"] ** 2
-    merge_dim = d * vc["spatial_merge_size"] ** 2
-    v = ("vision",)
-    plan.int4(v + ("patch_embed",), (), d, patch_dim)
-    for i in range(vc["depth"]):
-        b = v + ("blocks", i)
-        plan.norm(b + ("norm1",), d)
-        plan.norm(b + ("norm2",), d)
-        plan.int4(b + ("qkv",), (), 3 * d, d)
-        plan.bias(b + ("qkv_bias",), 3 * d)
-        plan.int4(b + ("proj",), (), d, d)
-        plan.bias(b + ("proj_bias",), d)
-        for name, out, inn in (("gate", inter, d), ("up", inter, d), ("down", d, inter)):
-            plan.int4(b + ("mlp", f"{name}_proj"), (), out, inn)
-            plan.bias(b + ("mlp", f"{name}_bias"), out)
-    m = v + ("merger",)
-    plan.norm(m + ("ln_q",), d)
-    plan.int4(m + ("fc1",), (), merge_dim, merge_dim)
-    plan.bias(m + ("fc1_bias",), merge_dim)
-    plan.int4(m + ("fc2",), (), vc["out_hidden_size"], merge_dim)
-    plan.bias(m + ("fc2_bias",), vc["out_hidden_size"])
+def plan_of(model: Dict[str, Any]) -> _Plan:
+    """The leaves of a configuration file's ``model`` section, in the
+    order its family adds them (``families/<model_type>.py``)."""
+    plan = _Plan()
+    family_of(model).plan_weights(plan, model)
+    return plan
 
 
 def make_weights(model: Dict[str, Any], seed: int, device) -> Dict[str, Any]:
-    """The weights of a configuration file's ``model`` section (a
-    ``vision_config`` makes a VLM) from ``seed``, on ``device``."""
-    plan = _Plan()
-    vision = model.get("vision_config")
-    if vision is not None:
-        _vision_plan(plan, vision)
-    _text_plan(plan, model, model["head_quantization"], model.get("qkv_bias", False))
-    tree = _materialize(plan, seed, device)
-    blocks = tree.get("vision", {}).get("blocks")
-    if blocks is not None:
-        tree["vision"]["blocks"] = [blocks[i] for i in range(len(blocks))]
-    head = tree["text"]["lm_head"]
-    head["s"][model["eos_token_id"]] = 0.0
-    return tree
+    """The weights of a configuration file's ``model`` section from
+    ``seed``, on ``device``, finished by its family."""
+    tree = _materialize(plan_of(model), seed, device)
+    return family_of(model).finish_weights(tree, model)
 
 
-__all__ = ["make_weights", "vocab_rows", "SIGMA4", "SIGMA8"]
+__all__ = ["make_weights", "plan_of", "vocab_rows", "SIGMA4", "SIGMA8"]

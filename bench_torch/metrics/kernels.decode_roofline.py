@@ -5,12 +5,14 @@ TFLOP/s, whichever is longer), over the device's busy time inside the
 decode spans, in %.  Launches and the kernels that did the work are not
 counted, so the yardstick stays whatever kernel a change puts there."""
 
-from bench_torch.harness import work
+from bench_torch.families import family_of
+from bench_torch.harness.work import PEAK_BF16_FLOPS, PEAK_HBM_BYTES
 
 
 def _least(model, tokens, passes, context):
-    seconds_bytes = work.decode_bytes(model, passes, context) / work.PEAK_HBM_BYTES
-    seconds_ops = work.decode_flops(model, tokens, context) / work.PEAK_BF16_FLOPS
+    family = family_of(model)
+    seconds_bytes = family.decode_bytes(model, passes, context) / PEAK_HBM_BYTES
+    seconds_ops = family.decode_flops(model, tokens, context) / PEAK_BF16_FLOPS
     return max(seconds_bytes, seconds_ops)
 
 

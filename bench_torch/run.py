@@ -17,7 +17,10 @@ After the window the program is freed and the plain float32 reference
 With ``--control`` the float8 control takes the program's place in that
 comparison: ``correct`` is decided by the control's readings, against the
 same limits, and the program's own readings are printed beside them.
-The run refuses to start without a CUDA device.  ``--rehearse`` runs the
+The run refuses to start without a CUDA device, and gives no result (it
+exits non-zero and names the modules) where the process holds ``jax``,
+``jaxlib``, ``flax`` or the JAX package ``vis_tpu`` as the window closes
+or before the result is printed.  ``--rehearse`` runs the
 cell's tiny profile on the CPU instead: the whole path and the check,
 with no metric and no device reading.
 """
@@ -39,6 +42,25 @@ if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
 GAP_LABELS = ("vision", "prefill", "decode", "scheduler.decode", "generate", "request")
+# Top-level module names that no run may hold: JAX and the JAX package the
+# port was made from.  ``vis_tpu_torch`` is another top-level name.
+FOREIGN = ("jax", "jaxlib", "flax", "vis_tpu")
+
+
+def foreign_modules(modules=None):
+    """The loaded modules of ``modules`` (``sys.modules``) whose top-level
+    name is one of ``FOREIGN``; a name blocked as None is not loaded."""
+    modules = sys.modules if modules is None else modules
+    return sorted(name for name, module in list(modules.items())
+                  if module is not None and name.split(".")[0] in FOREIGN)
+
+
+def refuse_foreign_modules(when: str) -> None:
+    """Stop the run, with no result, if the process holds a foreign module."""
+    found = foreign_modules()
+    if found:
+        raise SystemExit(f"{when}, the process holds {', '.join(found)}: a run that loads "
+                         f"JAX or the JAX package gives no result")
 
 
 class Run:
@@ -182,6 +204,7 @@ def run_once(cell, seed, seconds, trace=False, control=False, rehearse=False, fa
         if prof is not None:
             prof.stop()
             recorder.spans_on = False
+        refuse_foreign_modules("as the window closed")
         run.window_s = run.done[-1]["t1"] - t_w0
         run.records = list(recorder.requests)
         run.timings = get_timings(reset=True)
@@ -268,6 +291,7 @@ def _args(argv=None):
 
 
 def print_result(result) -> None:
+    refuse_foreign_modules("before the result")
     for name, entry in result["check"].items():
         print(f"check {name} {entry['value']!r} limit {entry['limit']!r}", file=sys.stderr)
     print(json.dumps(result), flush=True)

@@ -7,10 +7,12 @@
   control judged in the program's place it reads ``correct`` false.
 - With the timed path broken underneath (the first token of every decode
   call altered where it is produced), ``correct`` comes out false.
+- A run whose process holds JAX or the JAX package gives no result.
 """
 
 import json
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -78,3 +80,22 @@ def test_the_float8_control_is_not_correct(cell):
 def test_an_altered_token_fails_the_check(cell):
     result = bench_run.run_once(load_cell(cell), 2**31 + 78, 0.5, rehearse=True, fault="token")
     assert not result["correct"], result["check"]
+
+
+def test_foreign_modules_are_told_by_their_top_level_name():
+    modules = {"jax": 1, "jaxlib.xla_client": 1, "flax.linen": 1, "vis_tpu": 1,
+               "vis_tpu.ops.quality": 1, "vis_tpu_torch": 1, "vis_tpu_torch.ops": 1,
+               "jaxtyping": 1, "flaxen": 1, "blocked": None}
+    modules["jax.numpy"] = None  # blocked, not loaded
+    assert bench_run.foreign_modules(modules) == [
+        "flax.linen", "jax", "jaxlib.xla_client", "vis_tpu", "vis_tpu.ops.quality"]
+
+
+@pytest.mark.parametrize("name", ["jax", "vis_tpu.ops"])
+def test_a_run_that_holds_jax_gives_no_result(name, monkeypatch, capsys):
+    monkeypatch.setitem(sys.modules, name, types.ModuleType(name))
+    with pytest.raises(SystemExit) as stop:
+        bench_run.main(["--workload", CELLS[-1], "--seed", str(2**31 + 83), "--seconds", "0.5",
+                        "--rehearse"])
+    assert isinstance(stop.value.code, str) and name in stop.value.code
+    assert capsys.readouterr().out == ""

@@ -21,11 +21,12 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
-from bench_torch.harness.engines import program_config  # noqa: E402
+from bench_torch.families import family_of  # noqa: E402
+from bench_torch.families import qwen2_5_vl as qwen  # noqa: E402
 from bench_torch.harness.engines import _program_leaves  # noqa: E402
 from bench_torch.harness.photos import photo_array  # noqa: E402
 from bench_torch.harness.weights import make_weights  # noqa: E402
-from bench_torch.reference import models as ref  # noqa: E402
+from bench_torch.reference import primitives as ref  # noqa: E402
 
 CONFIGS = ROOT / "bench_torch" / "configs"
 
@@ -42,7 +43,7 @@ def program_logits(model, weights, ids, positions):
     from vis_tpu_torch.models.common.decoder import prefill_scan
     from vis_tpu_torch.models.common.layers import KVCache, embed
 
-    cfg = program_config(model)
+    cfg = family_of(model).program_config(model)
     tc = cfg if not hasattr(cfg, "text") else cfg.text
     params = _program_leaves(copy.copy(weights))["text"]
     n = ids.shape[0]
@@ -57,13 +58,11 @@ def test_text_decoder_matches_the_port(name):
     model = tiny(name)
     weights = make_weights(model, 12345, "cpu")
     ids = torch.randint(0, 256, (40,), generator=torch.Generator().manual_seed(1))
-    positions = torch.arange(40)
-    pos_prog = positions[None] if "vision_config" not in model else positions[None]
-    got = program_logits(model, weights, ids, pos_prog)
+    got = program_logits(model, weights, ids, torch.arange(40)[None])
+    family = family_of(model)
     with ref.exact_matmuls():
-        want = ref.text_logits(model, weights["text"], ref.text_embeds(weights["text"], ids),
-                               positions if "vision_config" not in model
-                               else positions.expand(3, -1), torch.tensor([39]))[0]
+        seq = family.sequence(model, {"pieces": [{"ids": ids.tolist()}]}, weights, "cpu")
+        want = family.logits(model, weights, seq, torch.tensor([39]), ref.EXACT)[0]
     assert float((got - want).abs().max()) < 0.05 * float(want.std())
 
 
@@ -77,14 +76,14 @@ def test_vision_tower_matches_the_port():
     vc = model["vision_config"] = dict(model["vision_config"], out_hidden_size=64)
     weights = make_weights(model, 777, "cpu")
     img = torch.from_numpy(photo_array({"seed": 9, "index": 0, "height": 168, "width": 252}))
-    cfg = program_config(model).vision
+    cfg = qwen.program_config(model).vision
     patches = preprocess_frame_device(img, 168, 252)
-    assert torch.allclose(patches, ref.image_patches(ref.resize(img, 168, 252), vc), atol=1e-6)
+    assert torch.allclose(patches, qwen.image_patches(qwen.resize(img, 168, 252), vc), atol=1e-6)
     layout = window_layout(cfg, 12, 18, src_len=patches.shape[0])
     params = _program_leaves(copy.copy(weights))["vision"]
     got = vision_forward_25(cfg, params, patches, layout).float()
     with ref.exact_matmuls():
-        want = ref.vision_embeds(vc, weights["vision"], ref.resize(img, 168, 252))
+        want = qwen.vision_embeds(vc, weights["vision"], qwen.resize(img, 168, 252))
     assert got.shape == want.shape
     # bf16 reads about 2%; attention over the whole image instead of its
     # windows reads 6.7%, windows of half the size 4.3%.
@@ -96,13 +95,13 @@ def test_camera_photos_resize_as_the_port_serves_them():
 
     proc = tiny("qwen2_5_vl_7b")["image_processor"]
     for h, w in ((480, 640), (768, 1024), (960, 1280), (1280, 960), (3000, 40), (30, 50)):
-        assert ref.served_size(h, w, proc, 28) == target_size(h, w, proc["max_image_dimension"])
+        assert qwen.served_size(h, w, proc, 28) == target_size(h, w, proc["max_image_dimension"])
     vc = tiny("qwen2_5_vl_7b")["vision_config"]
     for h, w in ((100, 140), (150, 90)):  # down- and upscales of each side
         img = torch.from_numpy(photo_array({"seed": 11, "index": 1, "height": h, "width": w}))
-        dh, dw = ref.served_size(h, w, proc, 28)
+        dh, dw = qwen.served_size(h, w, proc, 28)
         got = preprocess_frame_device(img, dh, dw)
-        want = ref.image_patches(ref.resize(img, dh, dw), vc)
+        want = qwen.image_patches(qwen.resize(img, dh, dw), vc)
         assert float((got - want).abs().max()) < 1e-5
 
 
@@ -111,7 +110,7 @@ def test_mrope_positions_match_the_port():
 
     for gh, gw, after in ((6, 8, 10), (34, 46, 2583)):
         want, _ = build_mrope_positions(1, gh, gw, after)
-        got = ref.mrope_positions(1, gh, gw, 2, after)
+        got = qwen.mrope_positions(1, gh, gw, 2, after)
         assert np.array_equal(got.numpy(), want)
 
 

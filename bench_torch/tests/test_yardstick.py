@@ -16,7 +16,8 @@ sys.path.insert(0, str(ROOT))
 from bench_torch.harness import timeline, work  # noqa: E402
 from bench_torch.harness.photos import photo_array  # noqa: E402
 from bench_torch.harness.serve import balanced  # noqa: E402
-from bench_torch.harness.weights import _Plan, _numel, _text_plan, make_weights  # noqa: E402
+from bench_torch.families import _dense_gqa as dense_gqa  # noqa: E402
+from bench_torch.harness.weights import _Plan, _numel, make_weights  # noqa: E402
 from bench_torch.drivers import inspect  # noqa: E402
 
 CONFIGS = ROOT / "bench_torch" / "configs"
@@ -75,12 +76,13 @@ def test_weight_bytes_count_every_leaf_of_a_pass():
     """The bytes a pass must read equal the plan's quantized bytes and
     scales (less the embedding, which a pass reads a row of) plus norms."""
     model = json.loads((CONFIGS / "qwen2_5_vl_7b.json").read_text())["model"]
+    assert (model["head_quantization"], model["qkv_bias"]) == ("int4", True)
     plan = _Plan()
-    _text_plan(plan, model, "int4", True)
+    dense_gqa.plan_weights(plan, model)
     bytes_ = sum(_numel(s) for p, s in plan.byte_leaves if "embed_tokens" not in p)
     floats = sum(_numel(s) * (4 if kind == "scale" else 2)
                  for p, s, kind, _ in plan.float_leaves if "embed_tokens" not in p)
-    assert abs(work.weight_bytes_per_pass(model) - (bytes_ + floats)) < 1e-6 * bytes_
+    assert abs(dense_gqa.weight_bytes_per_pass(model) - (bytes_ + floats)) < 1e-6 * bytes_
 
 
 def test_union_overlap_and_gaps_on_a_synthetic_timeline():
@@ -101,6 +103,69 @@ def test_union_overlap_and_gaps_on_a_synthetic_timeline():
 def test_roofline_arithmetic_is_bounded_by_its_own_peak():
     model = json.loads((CONFIGS / "mistral_7b_v0_3.json").read_text())["model"]
     # One pass of one token can take no less than its bytes at peak rate.
-    least = work.decode_bytes(model, 1, 1000) / work.PEAK_HBM_BYTES
+    least = dense_gqa.decode_bytes(model, 1, 1000) / work.PEAK_HBM_BYTES
     assert 1.0e-3 < least < 1.2e-3
-    assert work.decode_flops(model, 1, 1000) / work.PEAK_BF16_FLOPS < least
+    assert dense_gqa.decode_flops(model, 1, 1000) / work.PEAK_BF16_FLOPS < least
+
+
+def _overlap_by_segments(busy_s, busy_e, span_s, span_e):
+    """The overlap as the elementary segments between all ends that both
+    unions cover (the arithmetic before the running sum)."""
+    us, ue = timeline.union(np.asarray(span_s, np.int64), np.asarray(span_e, np.int64))
+    pts = np.unique(np.concatenate([busy_s, busy_e, us, ue]))
+    left, width = pts[:-1], np.diff(pts)
+
+    def covered(s, e):
+        i = np.searchsorted(s, left, side="right") - 1
+        return (i >= 0) & (e[np.clip(i, 0, None)] > left)
+
+    return int(width[covered(busy_s, busy_e) & covered(us, ue)].sum())
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_overlap_equals_the_segment_count(seed):
+    rng = np.random.default_rng(seed)
+    n = int(rng.integers(1, 3000))
+    s = np.sort(rng.integers(0, 10**7, n)).astype(np.int64)
+    e = s + rng.integers(0, 20000, n)
+    bs, be = timeline.union(s, e)
+    m = int(rng.integers(1, 40))
+    span_s = rng.integers(-10**5, 10**7 + 10**5, m)
+    span_e = span_s + rng.integers(0, 10**6, m)
+    got = timeline.overlap(bs, be, span_s, span_e)
+    assert got == _overlap_by_segments(bs, be, span_s, span_e)
+    lo, hi = 2 * 10**6, 8 * 10**6
+    cs, ce = timeline.clip(bs, be, lo, hi)
+    assert timeline.overlap(cs, ce, span_s, span_e) == _overlap_by_segments(cs, ce, span_s, span_e)
+    assert timeline.overlap(bs, be, [lo], [hi]) == timeline.total(cs, ce)
+
+
+def test_device_events_reads_only_device_events():
+    cuda = torch.autograd.DeviceType.CUDA
+
+    class Event:
+        def __init__(self, device, start, dur, name):
+            self.device, self.start, self.dur, self.label = device, start, dur, name
+
+        def device_type(self):
+            return self.device
+
+        def start_ns(self):
+            return self.start
+
+        def duration_ns(self):
+            return self.dur
+
+        def name(self):
+            return self.label
+
+    events = [Event(cuda, 10, 5, "k1"), Event(torch.autograd.DeviceType.CPU, 0, 99, "op"),
+              Event(cuda, 3, 2, "k2")]
+    prof = SimpleNamespace(profiler=SimpleNamespace(
+        kineto_results=SimpleNamespace(events=lambda: events)))
+    s, e, names = timeline.device_events(prof)
+    assert s.dtype == e.dtype == np.int64
+    assert s.tolist() == [10, 3] and e.tolist() == [15, 5] and names == ["k1", "k2"]
+    prof.profiler.kineto_results.events = lambda: events[1:2]
+    s, e, names = timeline.device_events(prof)
+    assert len(s) == len(e) == 0 and s.dtype == np.int64 and names == []
