@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase
+    python3 chip_smoke.py ssm      # phases 1, 2, the state step and the hybrid decode
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -22,7 +23,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows, and B runs every int4 text projection of Llama-3.2-11B-Vision (B =
    1 and 8) and its head (B = 1).  A kernel's time is that of a run of
    launches captured into a CUDA graph (``device_ms``), a plain version's
-   that of a run of calls back to back (``stream_ms``);
+   that of a run of calls back to back (``stream_ms``).  Then the Mamba2
+   state step (``ops/ssm.py``, no TPU counterpart) at the bundle cell's
+   shapes (3 rows, 256 heads x 64 x 256, Nemotron-H-47B), against its plain
+   version: its ms, the bound at 3.35 TB/s and max|err|; and the hybrid
+   stack's two fused norms (``ops/norms.py``) at its decode and prefill
+   rows.  Both run before the other kernels, and so does the hybrid
+   decoder's main path at Nemotron-H-47B's widths in a 4-block stack
+   (``phase_hybrid``): prefill, then one paged scheduler chunk on 3 slots,
+   on the card against the CPU, with the chunk's launches of the state
+   step and the two norms counted and required;
 4. reference: the small Qwen2.5-VL, Llama text and Mllama profiles, int4
    and int8, on the card against the same engines on the CPU (prefill
    logits, a lookahead window, one batched paged decode chunk; the Mllama
@@ -84,6 +94,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -295,6 +306,217 @@ def phase_kernels() -> dict:
     gen.manual_seed(SEED)
     return {"A": _kernel_a(gen, dev), "B": _kernel_b(gen, dev), "C": _kernel_c(gen, dev),
             "D": _kernel_d(gen, dev), "E": _kernel_e(gen, dev)}
+
+
+# The Mamba2 state step at Nemotron-H-47B's sizes: rows (the bundle cell's
+# slots), heads, head dim, state size, groups; LAYERS_SSM layers' states
+# are walked (each 100.7 MB at three rows, more than the 50 MB L2 holds).
+SSM_SHAPE = dict(rows=3, heads=256, head_dim=64, state=256, groups=8)
+LAYERS_SSM = 4
+
+
+def phase_ssm_step() -> dict:
+    """The Mamba2 state step (``ops/ssm.py``) against its plain version at
+    the bundle cell's shapes, on cursors that start a ring (0, 1) and wrap
+    it (1,234): y and the state within 2^-14 of max|ref| (only the
+    readout's sum order and the exp/log1p roundings differ), the conv ring
+    bit for bit.  Times the kernel over LAYERS_SSM layers' states beside
+    its bound (the state read and written once, the ring, the inputs and
+    y, at 3.35 TB/s) and the plain version."""
+    import torch
+
+    from vis_tpu_torch.ops.ssm import ssm_step, ssm_step_plain
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    rows, heads, p, n, groups = (SSM_SHAPE[k] for k in ("rows", "heads", "head_dim", "state",
+                                                         "groups"))
+    d_inner = heads * p
+    conv_dim = d_inner + 2 * groups * n
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+    zxbcdt = randn(rows, d_inner + conv_dim + heads, dtype=torch.bfloat16)
+    conv_w = randn(conv_dim, 4, scale=0.5, dtype=torch.bfloat16)
+    conv_b = randn(conv_dim, scale=0.02, dtype=torch.bfloat16)
+    u = torch.rand((heads,), generator=gen, device=dev)
+    a_log = torch.log(1.0 + 15.0 * u)
+    dt = torch.exp(math.log(1e-3) + math.log(100.0) * torch.rand((heads,), generator=gen,
+                                                                  device=dev))
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    d_skip = 1.0 + randn(heads, scale=0.1)
+    rings = randn(LAYERS_SSM, rows, conv_dim, 4, dtype=torch.bfloat16)
+    states = randn(LAYERS_SSM, rows, heads, p, n, scale=0.1)
+    cursor = torch.tensor([0, 1, 1234], dtype=torch.int32, device=dev)[:rows]
+    args = (conv_w, conv_b, dt_bias, a_log, d_skip)
+
+    ring_k, state_k = rings[0].clone(), states[0].clone()
+    ring_p, state_p = rings[0].clone(), states[0].clone()
+    before = ssm_step.launches
+    got = ssm_step(zxbcdt, ring_k, cursor, *args, state_k, groups)
+    want = ssm_step_plain(zxbcdt, ring_p, cursor, *args, state_p, groups)
+    torch.cuda.synchronize()
+    err = max((got - want).abs().max().item(), (state_k - state_p).abs().max().item())
+    tol = 2.0 ** -14 * max(want.abs().max().item(), state_p.abs().max().item())
+    ring_same = bool(torch.equal(ring_k, ring_p))
+    print(f"[S] ssm step rows={rows} H={heads} P={p} N={n} G={groups}: max|err| {err:.3e} "
+          f"<= tol {tol:.3e}; conv ring bit-equal {ring_same}; launches "
+          f"{ssm_step.launches - before}")
+    if not (err <= tol and ring_same and ssm_step.launches - before == 1):
+        raise AssertionError(f"ssm step: err {err} > {tol}, ring equal {ring_same}")
+    ms = device_ms(lambda i: ssm_step(zxbcdt, rings[i % LAYERS_SSM], cursor, *args,
+                                      states[i % LAYERS_SSM], groups), 4 * LAYERS_SSM)
+    plain = stream_ms(lambda i: ssm_step_plain(zxbcdt, rings[i % LAYERS_SSM], cursor, *args,
+                                               states[i % LAYERS_SSM], groups), 8)
+    nbytes = (rows * (2 * heads * p * n * 4 + 3 * conv_dim * 2 + conv_dim * 2
+                      + (conv_dim + heads) * 2 + d_inner * 4)
+              + conv_dim * 5 * 2 + 3 * heads * 4)
+    limit = bound(nbytes, rows * heads * p * n * 5.0)
+    print(f"[S] ssm step: kernel {ms:.4f} ms ({nbytes / (ms * 1e-3) / 1e9:.0f} GB/s), plain "
+          f"{plain:.4f} ms, bound {limit[0]:.4f} ms ({limit[1]}), {limit[0] / ms:.1%} of it")
+    _hybrid_norms(gen, dev, zxbcdt.shape[1], d_inner, groups)
+    return dict(err=err, ms=ms, plain_ms=plain, bound=limit, library_ms=None)
+
+
+def _hybrid_norms(gen, dev, in_proj: int, d_inner: int, groups: int,
+                  hidden: int = 8192) -> None:
+    """The fused add + RMSNorm and the grouped gated norm (``ops/norms.py``)
+    against their plain versions at Nemotron-H-47B's widths, 3 rows (decode)
+    and 2,112 (a prefill bucket): x + delta bit for bit, the norms within
+    2^-7 of max|ref| (the sum of squares is a tree on the card, so an output
+    can move by one bf16 step), one launch each; the decode rows timed."""
+    import torch
+
+    from vis_tpu_torch.ops import norms
+
+    for rows in (3, 2112):
+        x = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+        delta = torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+        w = (1.0 + 0.1 * torch.randn((hidden,), generator=gen, device=dev)).to(torch.bfloat16)
+        zxbcdt = torch.randn((rows, in_proj), generator=gen, device=dev).to(torch.bfloat16)
+        y = torch.randn((rows, d_inner), generator=gen, device=dev)
+        gw = (1.0 + 0.1 * torch.randn((d_inner,), generator=gen, device=dev)).to(torch.bfloat16)
+        before = (norms.add_rms_norm.launches, norms.gated_group_norm.launches)
+        for d in (delta, None):
+            (xo, h), (xp, hp) = (norms.add_rms_norm(x, d, w, 1e-5),
+                                 norms.add_rms_norm_plain(x, d, w, 1e-5))
+            err = (h.float() - hp.float()).abs().max().item()
+            same = bool(torch.equal(xo, xp))
+            print(f"[S] add_rms_norm rows={rows} delta={d is not None}: x + delta bit-equal "
+                  f"{same}; max|err| {err:.3e} <= {2 ** -7 * hp.float().abs().max().item():.3e}")
+            if not (same and err <= 2 ** -7 * hp.float().abs().max().item()):
+                raise AssertionError(f"add_rms_norm rows={rows}: x equal {same}, err {err}")
+        z = zxbcdt[:, :d_inner]
+        got = norms.gated_group_norm(y, z, gw, groups, 1e-5)
+        want = norms.gated_group_norm_plain(y, z, gw, groups, 1e-5)
+        err = (got.float() - want.float()).abs().max().item()
+        tol = 2 ** -7 * want.float().abs().max().item()
+        print(f"[S] gated_group_norm rows={rows}: max|err| {err:.3e} <= {tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"gated_group_norm rows={rows}: err {err} > {tol}")
+        if (norms.add_rms_norm.launches - before[0], norms.gated_group_norm.launches
+                - before[1]) != (2, 1):
+            raise AssertionError("the fused norms did not launch once a call")
+        if rows == 3:
+            add_ms = device_ms(lambda i: norms.add_rms_norm(x, delta, w, 1e-5), 64)
+            gated_ms = device_ms(lambda i: norms.gated_group_norm(y, z, gw, groups, 1e-5), 64)
+            print(f"[S] rows=3: add_rms_norm {add_ms:.4f} ms, gated_group_norm {gated_ms:.4f} ms")
+
+
+# The hybrid decode phase: Nemotron-H-47B's widths (the bundle cell's
+# configuration file) in a short stack that still holds the three kinds of
+# block, two of them Mamba2; a 4,096-token vocabulary keeps the CPU side's
+# head small (no kernel of the phase changes with it).
+HYBRID_PATTERN, HYBRID_VOCAB, HYBRID_STEPS = "M*M-", 4096, 8
+HYBRID_PROMPTS = ("Estimate repair costs for a cracked weld seam.",
+                  "Estimate repair costs for two dents on the housing.",
+                  "Estimate repair costs for corrosion, a crack and a missing bolt.")
+
+
+def phase_hybrid() -> dict:
+    """The hybrid decoder's main path on the card against the same engine
+    on the CPU, same weights (the benchmark's seeded Nemotron-H weights at
+    ``HYBRID_PATTERN``): three prompts prefilled (the chunked scan, the
+    fused add + RMSNorm at bucket rows), handed to a 3-slot paged scheduler
+    and decoded in one chunk of ``HYBRID_STEPS`` steps under the
+    decision_support schema, whose first 19 tokens are forced, so both
+    sides feed the same tokens.  Prefill and the chunk's last logits are
+    held to 2^-5 * max|ref|, the tokens must be equal, and with the
+    launch counters read just before the chunk, the card's chunk must
+    launch the state step and the gated norm once a Mamba2 block a step
+    and the add + RMSNorm once a block a step and once more for the final
+    norm."""
+    import torch
+
+    from bench_torch.families import family_of
+    from bench_torch.harness.engines import _program_leaves
+    from bench_torch.harness.weights import make_weights
+    from vis_tpu_torch.ops import norms
+    from vis_tpu_torch.ops.ssm import ssm_step
+    from vis_tpu_torch.serving import engine as E
+    from vis_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    from vis_tpu_torch.serving.schema import schema_constraint_tables
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    model = json.loads((REPO / "bench_torch" / "configs" / "nemotron_h_47b.json")
+                       .read_text())["model"]
+    model = {**model, "hybrid_override_pattern": HYBRID_PATTERN,
+             "num_hidden_layers": len(HYBRID_PATTERN), "vocab_size": HYBRID_VOCAB}
+    config = family_of(model).program_config(model)
+    blocks, mamba = len(HYBRID_PATTERN), HYBRID_PATTERN.count("M")
+    params = _program_leaves(make_weights(model, SEED, DEVICE))
+    tokenizer = ByteTokenizer(vocab_size=HYBRID_VOCAB)
+    tables = {"decision_support": schema_constraint_tables(tokenizer, HYBRID_VOCAB,
+                                                           "decision_support")}
+    settings = E.ServingSettings(max_cache_tokens=1024, prefill_buckets=(128,))
+    out = {}
+    for label, device in (("kernel", DEVICE), ("plain", "cpu")):
+        side = E.Engine("hybrid", config, params if label == "kernel"
+                        else _to_device(params, device), tokenizer, device, settings)
+        side.scheduler = ContinuousBatchingScheduler(
+            config, side.params["text"], tokenizer, side.device, num_slots=3, max_len=1024,
+            json_tables=tables, page_size=128, pool_tokens=3072, decode_chunk=HYBRID_STEPS)
+        prefill, requests = [], []
+        for prompt in HYBRID_PROMPTS:
+            cache, logits, pos, kv_len, _ = side._prefill_request(
+                prompt, None, max_tokens=200, max_image_dim=0, prompt_only_cache=True)
+            prefill.append(logits)
+            requests.append(side.scheduler.submit_prefilled(
+                cache, logits, pos, max_tokens=200, kv_len=kv_len, json_mode=True,
+                schema="decision_support"))
+        while side.scheduler._admit_one():
+            pass
+        if label == "kernel":
+            torch.cuda.synchronize()
+        before = (ssm_step.launches, norms.add_rms_norm.launches,
+                  norms.gated_group_norm.launches, side.scheduler.stats["steps"])
+        side.scheduler._decode_once()
+        after = (ssm_step.launches, norms.add_rms_norm.launches,
+                 norms.gated_group_norm.launches, side.scheduler.stats["steps"])
+        out[label] = {"prefill": torch.cat(prefill).float().cpu(),
+                      "chunk": side.scheduler._logits.float().cpu(),
+                      "tokens": [r.generated for r in requests],
+                      "counts": [a - b for a, b in zip(after, before)]}
+        side.scheduler = None
+        del side
+    ssm_n, add_n, gated_n, steps = out["kernel"]["counts"]
+    want = (mamba * steps, (blocks + 1) * steps, mamba * steps)
+    print(f"[hybrid] {config.describe()}: one chunk of {steps} steps on 3 slots launched "
+          f"ssm_step {ssm_n}, add_rms_norm {add_n}, gated_group_norm {gated_n} (want "
+          f"{want[0]}, {want[1]}, {want[2]}); the CPU's {out['plain']['counts'][:3]}")
+    if steps != HYBRID_STEPS or (ssm_n, add_n, gated_n) != want:
+        raise AssertionError(f"hybrid chunk launches {(ssm_n, add_n, gated_n)} != {want} "
+                             f"over {steps} steps")
+    if out["kernel"]["tokens"] != out["plain"]["tokens"]:
+        raise AssertionError(f"hybrid chunk tokens differ: {out['kernel']['tokens']} != "
+                             f"{out['plain']['tokens']}")
+    print(f"[hybrid] chunk tokens equal: {out['plain']['tokens']}")
+    worst = max(_hold("hybrid", name, out["plain"][name], out["kernel"][name])
+                for name in ("prefill", "chunk"))
+    return {"worst_err_over_tol": worst, "steps": steps, "ssm_step": ssm_n,
+            "add_rms_norm": add_n, "gated_group_norm": gated_n}
 
 
 def _kernel_a(gen, dev) -> dict:
@@ -2309,6 +2531,11 @@ def main() -> int:
     import torch
 
     phase_build()
+    ssm = phase_ssm_step()
+    hybrid = phase_hybrid()
+    if sys.argv[1:] == ["ssm"]:
+        print(json.dumps({"ssm_step": ssm, "hybrid": hybrid}))
+        return 0
     kernels = phase_kernels()
     for quantization in ("int4", "int8"):
         phase_reference(quantization)
@@ -2331,7 +2558,7 @@ def main() -> int:
          "library_ms": kernels[k]["library_ms"]}
         for k, (name, source, replaces) in KERNELS.items()
     ]
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "ssm_step": ssm, "hybrid": hybrid}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2331,6 +2331,346 @@ def _trace_stress(profile, activity, threads=16, pairs=200):
             "expected": 2 * threads * pairs, "window": [t0, t1]}
 
 
+# ---------------------------------------------------------------------------
+# The hybrid decoder (Nemotron-H) against its plain reference
+# ---------------------------------------------------------------------------
+
+NEMOTRON_CONFIG = REPO / "bench_torch" / "configs" / "nemotron_h_47b.json"
+
+
+def _nemotron_models():
+    """(full-size model, rehearsal model) of the configuration file."""
+    cfg = json.loads(NEMOTRON_CONFIG.read_text())
+    return cfg["model"], dict(cfg["model"], **cfg["rehearsal"]["model"])
+
+
+def _dequantized(tree):
+    """The benchmark's weights as float32 tensors: each int4 or int8 leaf
+    dequantized exactly as the reference reads it."""
+    from bench_torch.reference.primitives import dequant
+
+    if isinstance(tree, dict):
+        if "q4" in tree or "q8" in tree:
+            return dequant(tree)
+        return {k: _dequantized(v) for k, v in tree.items()}
+    return tree.to(torch.float32)
+
+
+def _nemotron_setup(seed: int):
+    """The rehearsal model, its seeded weights, the program's config in
+    float32 and its parameters: the same values the reference reads, so the
+    two differ only in the order of float32 sums."""
+    from bench_torch.families import nemotron_h as fam
+    from bench_torch.harness.weights import make_weights
+
+    _, tiny = _nemotron_models()
+    weights = make_weights(tiny, seed, "cpu")
+    config = dataclasses.replace(fam.program_config(tiny), dtype=torch.float32)
+    return fam, tiny, weights, config, _dequantized(weights["text"])
+
+
+def _nemotron_reference(fam, tiny, weights, ids, rows):
+    from bench_torch.reference.primitives import EXACT
+
+    seq = fam.sequence(tiny, {"pieces": [{"ids": list(ids)}]}, weights, "cpu")
+    with torch.no_grad():
+        return fam.logits(tiny, weights, seq, torch.tensor(rows), EXACT)
+
+
+def _nemotron_prefill(config, params, ids, bucket, cache_len):
+    from vis_tpu_torch.models.common import decoder as dec
+
+    padded = torch.zeros((1, bucket), dtype=torch.int64)
+    padded[0, :len(ids)] = torch.tensor(ids)
+    cache = dec.new_cache(config, 1, cache_len, "cpu")
+    embeds = params["embed_tokens"][padded]
+    positions = torch.arange(bucket, dtype=torch.int32)[None]
+    logits, cache = dec.prefill_scan(config, params, embeds, positions, cache, [len(ids)])
+    return logits, cache
+
+
+def _capturing_picker(dec, captured):
+    class Capturing(dec.TokenPicker):
+        def __call__(self, logits):
+            captured.append(logits.clone())
+            return super().__call__(logits)
+
+    return Capturing
+
+
+def case_nemotron_h(inp):
+    """The hybrid decoder at the rehearsal size in float32 against the
+    family's reference; see tests/test_torch_nemotron_h.py."""
+    from vis_tpu_torch.models.common import decoder as dec
+    from vis_tpu_torch.models.common import layers as lay
+    from vis_tpu_torch.serving.scheduler import ContinuousBatchingScheduler
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    spec = json.loads(str(inp["spec"]))
+    fam, tiny, weights, config, params = _nemotron_setup(spec["seed"])
+    rng = np.random.default_rng(spec["seed"])
+    out = {}
+    torch.set_grad_enabled(False)
+
+    def prompt(n):
+        return rng.integers(0, 256, n).tolist()
+
+    # Bucketed prefill, then decode through _eos_loop (dense cache).
+    d = spec["dense"]
+    ids = prompt(d["prompt"])
+    logits0, cache = _nemotron_prefill(config, params, ids, d["bucket"], d["cache"])
+    captured = []
+    tokens, _ = dec._dense_loop(config, params, logits0, len(ids), cache, d["steps"], -1, None,
+                                _capturing_picker(dec, captured)())
+    got = torch.stack([c[0] for c in captured])
+    gen = tokens[0].tolist()
+    ref = _nemotron_reference(fam, tiny, weights, ids + gen,
+                              [len(ids) - 1 + j for j in range(len(gen))])
+    out["dense/got"], out["dense/ref"] = _np(got), _np(ref)
+    out["dense/tokens"] = np.array(gen)
+
+    # The same prompt in two buckets: the same state, K/V and next logits.
+    b = spec["buckets"]
+    ids = prompt(b["prompt"])
+    for bucket in b["buckets"]:
+        logits, cache = _nemotron_prefill(config, params, ids, bucket, max(b["buckets"]))
+        out[f"bucket{bucket}/logits"] = _np(logits)
+        out[f"bucket{bucket}/ssm"] = _np(cache.ssm)
+        out[f"bucket{bucket}/conv"] = _np(cache.conv)
+        out[f"bucket{bucket}/k"] = _np(cache.k[:, :, :len(ids)])
+
+    # Chunked scan against the recurrence, at lengths off the chunk.
+    cfg = config.mamba
+    for n in spec["scan_lengths"]:
+        g = torch.Generator().manual_seed(n)
+        x = torch.randn(2, n, cfg.num_heads, cfg.head_dim, generator=g)
+        dt = 0.2 * torch.rand(2, n, cfg.num_heads, generator=g)
+        a = -(1.0 + 15.0 * torch.rand(cfg.num_heads, generator=g))
+        bmat = torch.randn(2, n, cfg.n_groups, cfg.state_size, generator=g)
+        cmat = torch.randn(2, n, cfg.n_groups, cfg.state_size, generator=g)
+        y, state = lay.ssd_scan(x, dt, a, bmat, cmat, cfg.chunk_size)
+        per = cfg.num_heads // cfg.n_groups
+        s = torch.zeros(2, cfg.num_heads, cfg.head_dim, cfg.state_size)
+        ys = []
+        for t in range(n):
+            bh = bmat[:, t].repeat_interleave(per, 1)
+            ch = cmat[:, t].repeat_interleave(per, 1)
+            s = torch.exp(dt[:, t] * a)[:, :, None, None] * s \
+                + (dt[:, t, :, None] * x[:, t])[..., None] * bh[:, :, None, :]
+            ys.append(torch.einsum("bhpn,bhn->bhp", s, ch))
+        out[f"scan{n}/y"], out[f"scan{n}/y_ref"] = _np(y), _np(torch.stack(ys, 1))
+        out[f"scan{n}/state"], out[f"scan{n}/state_ref"] = _np(state), _np(s)
+
+    # One Mamba2 layer: the prefill mixer, the step a token at a time, and a
+    # prefill of the first tokens then steps, against the reference's mixer.
+    layer = dec._pick_layer(params["layers_stacked"]["mamba"], 0)
+    ref_layer = fam._layer(weights["text"]["layers_stacked"]["mamba"], 0)
+    for n in spec["scan_lengths"]:
+        h = torch.randn(1, n, config.hidden_size, generator=torch.Generator().manual_seed(7 + n))
+        want = fam.mamba_mixer(tiny, ref_layer, h[0])
+        conv, ssm = lay.recurrent_state(cfg, 1, 1, torch.float32, "cpu")
+        full = lay.mamba2_prefill(cfg, h, layer, torch.tensor([n]), conv[0], ssm[0])
+        conv, ssm = lay.recurrent_state(cfg, 1, 1, torch.float32, "cpu")
+        steps = [lay.mamba2_step(cfg, h[:, t:t + 1], layer, torch.tensor([t], dtype=torch.int32),
+                                 conv[0], ssm[0]) for t in range(n)]
+        split = spec["split"]
+        conv2, ssm2 = lay.recurrent_state(cfg, 1, 1, torch.float32, "cpu")
+        bucket = -(-split // cfg.chunk_size) * cfg.chunk_size + cfg.chunk_size
+        padded = torch.zeros(1, bucket, config.hidden_size)
+        padded[:, :split] = h[:, :split]
+        head = lay.mamba2_prefill(cfg, padded, layer, torch.tensor([split]), conv2[0], ssm2[0])
+        tail = [lay.mamba2_step(cfg, h[:, t:t + 1], layer, torch.tensor([t], dtype=torch.int32),
+                                conv2[0], ssm2[0]) for t in range(split, n)]
+        out[f"mixer{n}/ref"] = _np(want)
+        out[f"mixer{n}/prefill"] = _np(full[0])
+        out[f"mixer{n}/steps"] = _np(torch.cat(steps, 1)[0])
+        out[f"mixer{n}/split"] = _np(torch.cat([head[:, :split]] + tail, 1)[0])
+
+    # The paged scheduler: 3 slots, staggered admissions, a slot reused.
+    sp = spec["paged"]
+    tok = ByteTokenizer(vocab_size=tiny["vocab_size"])
+    sched = ContinuousBatchingScheduler(config, params, tok, "cpu", num_slots=3,
+                                        max_len=sp["max_len"], page_size=sp["page"],
+                                        pool_tokens=sp["pool"], decode_chunk=sp["chunk"])
+    reqs, prompts = {}, {}
+
+    def submit(name):
+        ids = prompt(sp["prompts"][name])
+        page = max(128, sched.pool.page_size)
+        staging = -(-len(ids) // page) * page
+        logits, cache = _nemotron_prefill(config, params, ids, staging, staging)
+        prompts[name] = ids
+        reqs[name] = sched.submit_prefilled(cache, logits, len(ids),
+                                            max_tokens=sp["budgets"][name], kv_len=len(ids))
+        assert sched._admit_one()
+
+    rows = {}  # request name -> program logits of each generated token
+    original = dec.TokenPicker
+
+    def chunk():
+        before = [(s.request, len(s.request.generated) if s.request else 0)
+                  for s in sched.slots]
+        captured = []
+        dec.TokenPicker = _capturing_picker(dec, captured)
+        try:
+            sched._decode_once()
+        finally:
+            dec.TokenPicker = original
+        for i, (request, n0) in enumerate(before):
+            if request is None:
+                continue
+            name = next(k for k, r in reqs.items() if r is request)
+            kept = len(request.generated) - n0
+            rows.setdefault(name, []).extend(captured[k][i] for k in range(kept))
+
+    slot_of = {}
+    for step in sp["schedule"]:
+        if step == "decode":
+            chunk()
+        else:
+            submit(step)
+            slot_of[step] = next(i for i, s in enumerate(sched.slots) if s.request is reqs[step])
+    while sched.active_count:
+        chunk()
+    for name, request in reqs.items():
+        ids = prompts[name]
+        gen = list(request.generated)
+        ref = _nemotron_reference(fam, tiny, weights, ids + gen,
+                                  [len(ids) - 1 + j for j in range(len(gen))])
+        out[f"paged/{name}/got"] = _np(torch.stack(rows[name]))
+        out[f"paged/{name}/ref"] = _np(ref)
+        out[f"paged/{name}/tokens"] = np.array(gen)
+        out[f"paged/{name}/slot"] = np.array(slot_of[name])
+        out[f"paged/{name}/error"] = np.array(request.error or "")
+    return out
+
+
+def case_nemotron_h_refusals(inp):
+    """Lookahead windows and chat sessions on a hybrid config raise
+    NotImplementedError naming it; the message of each attempt."""
+    from vis_tpu_torch.models.common import decoder as dec
+    from vis_tpu_torch.serving.engine import Engine, ServingSettings
+    from vis_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    fam, tiny, weights, config, params = _nemotron_setup(int(inp["seed"]))
+    engine = Engine("hybrid", config, {"text": params}, ByteTokenizer(vocab_size=tiny["vocab_size"]),
+                    "cpu", ServingSettings(max_cache_tokens=1024, prefill_buckets=(128, 256),
+                                           lookahead=8))
+    out = {}
+
+    def attempt(name, fn):
+        try:
+            fn()
+            out[name] = np.array("no error")
+        except NotImplementedError as exc:
+            out[name] = np.array(f"NotImplementedError: {exc}")
+
+    attempt("chat", lambda: engine.chat_start("The report says the weld is cracked."))
+    attempt("schema", lambda: engine.generate("Decide.", max_tokens=256, json_mode=True,
+                                              json_schema="decision_support"))
+    cache = dec.new_cache(config, 1, 256, "cpu")
+    attempt("extend", lambda: dec.extend_scan(
+        config, params, torch.zeros(1, 128, config.hidden_size), torch.zeros(1, 128), cache,
+        [5]))
+    attempt("lookahead", lambda: dec.decode_loop_lookahead(
+        config, params, None, 0, cache, None, None, None, num_windows=1, window=8))
+    out["greedy"] = np.array(engine.generate("Explain the verdict.", max_tokens=6))
+    return out
+
+
+def case_ssm_step_card(inp):
+    """The Mamba2 state step kernel against its plain version on the card;
+    on a host without a card it reports why nothing ran."""
+    if not torch.cuda.is_available():
+        return {"skip": np.array("torch sees no CUDA device")}
+    from vis_tpu_torch.ops.ssm import ssm_step, ssm_step_plain
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"skip": np.array("")}
+    for name, (rows, heads, p, n, groups, cursors) in json.loads(str(inp["cases"])).items():
+        d_inner = heads * p
+        conv_dim = d_inner + 2 * groups * n
+
+        def randn(*shape, scale=1.0, dtype=torch.float32):
+            return (scale * torch.randn(shape, generator=gen, device=dev)).to(dtype)
+
+        # Rows of a wider in_proj output (a leading stride past the row).
+        zxbcdt = randn(rows, d_inner + conv_dim + heads + 16, dtype=torch.bfloat16)
+        args = (randn(conv_dim, 4, scale=0.5, dtype=torch.bfloat16),
+                randn(conv_dim, scale=0.02, dtype=torch.bfloat16), randn(heads) - 4.0,
+                torch.log(1.0 + 15.0 * torch.rand((heads,), generator=gen, device=dev)),
+                1.0 + randn(heads, scale=0.1))
+        ring = randn(rows, conv_dim, 4, dtype=torch.bfloat16)
+        state = randn(rows, heads, p, n, scale=0.1)
+        cursor = torch.tensor(cursors, dtype=torch.int32, device=dev)
+        results = []
+        for _ in range(2):
+            r, st = ring.clone(), state.clone()
+            results.append((ssm_step(zxbcdt, r, cursor, *args, st, groups), r, st))
+        r, st = ring.clone(), state.clone()
+        want = ssm_step_plain(zxbcdt, r, cursor, *args, st, groups)
+        got, r_k, st_k = results[0]
+        torch.cuda.synchronize()
+        out[name] = np.array([
+            max((got - want).abs().max().item(), (st_k - st).abs().max().item()),
+            max(want.abs().max().item(), st.abs().max().item()),
+            float(torch.equal(r_k, r)),
+            float(all(torch.equal(a, b) for a, b in zip(results[0], results[1])))])
+    try:
+        ssm_step(zxbcdt, ring, cursor, *args, torch.zeros(rows, heads, p, 64, device=dev), groups)
+        out["refused"] = np.array("")
+    except ValueError as exc:
+        out["refused"] = np.array(str(exc))
+    from vis_tpu_torch.ops import norms
+
+    # The fused norms: (rows, hidden, in_proj row width, d_inner, groups).
+    for rows, hidden, width, d_inner, groups in json.loads(str(inp["norm_cases"])):
+        x, delta = (torch.randn((rows, hidden), generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+        w = (1.0 + 0.1 * torch.randn((hidden,), generator=gen, device=dev)).to(torch.bfloat16)
+        xo, h = norms.add_rms_norm(x, delta, w, 1e-5)
+        xp, hp = norms.add_rms_norm_plain(x, delta, w, 1e-5)
+        z = torch.randn((rows, width), generator=gen, device=dev).to(torch.bfloat16)[:, :d_inner]
+        y = torch.randn((rows, d_inner), generator=gen, device=dev)
+        gw = (1.0 + 0.1 * torch.randn((d_inner,), generator=gen, device=dev)).to(torch.bfloat16)
+        got = norms.gated_group_norm(y, z, gw, groups, 1e-5)
+        want = norms.gated_group_norm_plain(y, z, gw, groups, 1e-5)
+        out[f"norms/{rows}x{hidden}"] = np.array([
+            (h.float() - hp.float()).abs().max().item(), hp.float().abs().max().item(),
+            float(torch.equal(xo, xp)), (got.float() - want.float()).abs().max().item(),
+            want.float().abs().max().item()])
+    return out
+
+
+def case_nemotron_h_alone(inp):
+    """The family's weights, reference and counts in a process that cannot
+    import the program; its program_config must fail there."""
+    sys.modules["vis_tpu_torch"] = None
+    from bench_torch.families import nemotron_h as fam
+    from bench_torch.harness.weights import make_weights
+    from bench_torch.reference.primitives import EXACT
+
+    full, tiny = _nemotron_models()
+    weights = make_weights(tiny, 11, "cpu")
+    seq = fam.sequence(tiny, {"pieces": [{"ids": list(range(40))}]}, weights, "cpu")
+    with torch.no_grad():
+        logits = fam.logits(tiny, weights, seq, torch.tensor([39]), EXACT)
+    out = {"logits": _np(logits), "weight_bytes": np.array(fam.weight_bytes_per_pass(full)),
+           "state_bytes": np.array(fam.state_update_bytes(full)),
+           "kv_bytes": np.array(fam.kv_bytes_per_position(full)),
+           "counts": np.array(json.dumps(fam.counts(full))),
+           "decode_bytes": np.array(fam.decode_bytes(full, 10, 1000.0)),
+           "decode_flops": np.array(fam.decode_flops(full, 10, 1000.0)),
+           "prefill_flops": np.array(fam.prefill_flops(full, 100))}
+    try:
+        fam.program_config(tiny)
+        out["program_config"] = np.array("imported")
+    except ImportError as exc:
+        out["program_config"] = np.array(f"ImportError: {exc}")
+    return out
+
+
 def main() -> int:
     case, in_path, out_path = sys.argv[1:4]
     inp = np.load(in_path, allow_pickle=False)

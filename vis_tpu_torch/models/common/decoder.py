@@ -1,4 +1,5 @@
-"""GQA transformer decoder: the Qwen2.5-VL and Llama text stacks.
+"""GQA transformer decoder: the Qwen2.5-VL and Llama text stacks, and the
+hybrid Mamba2 / attention / MLP stacks (Nemotron-H).
 
 Counterpart of the scan-execution half of ``vis_tpu/models/common/decoder.py``.
 Layer parameters are stacked ([L, ...] leaves, int4 leaves as
@@ -19,6 +20,14 @@ Decode over the scheduler's paged KV pool is ``decode_loop_paged``
 stacked tables, greedy or per-row Gumbel-sampled), one token per weight
 pass for every slot at once.  Every token-per-pass loop runs on the
 ``_eos_loop`` scaffold.
+
+A hybrid config (``block_pattern``) walks three stacks in the published
+order of its blocks: Mamba2 mixers, attention without rotary embedding,
+squared-ReLU MLPs, each ``h = h + block(rms_norm(h))``.  Its cache
+(``new_cache``) holds K/V for the attention blocks only and each row's
+recurrent state for the Mamba2 blocks.  Prefill, the dense and the paged
+token steps take it; the lookahead window and chat sessions (which extend
+a cache by a chunk) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,19 +42,24 @@ import torch
 
 from vis_tpu_torch.models.common.layers import (
     KVCache,
+    Mamba2Config,
     apply_rope,
     causal_mask,
     embed,
     length_mask,
     linear,
+    mamba2_prefill,
+    mamba2_step,
     matmul_f32,
     mrope_cos_sin,
+    relu2_mlp,
     rms_norm,
     rope_cos_sin,
     swiglu_mlp,
 )
 from vis_tpu_torch.utils.logger import span, synced
 from vis_tpu_torch.ops._kernels import add_launches, captured_launches
+from vis_tpu_torch.ops.norms import add_rms_norm
 from vis_tpu_torch.ops.quantized import (
     QuantizedWeight,
     QuantizedWeight4,
@@ -75,6 +89,11 @@ class DecoderConfig:
     rope_scaling: Optional[Tuple[Tuple[str, Any], ...]] = None  # llama3 scheme
     tie_word_embeddings: bool = False
     dtype: Any = torch.bfloat16
+    # Class attributes, not fields: the plain decoder is num_layers layers
+    # of rotary attention then a SwiGLU MLP.  HybridDecoderConfig makes
+    # them fields.
+    block_pattern = None
+    mamba = None
 
     @property
     def rope_scaling_dict(self) -> Optional[Dict[str, Any]]:
@@ -84,9 +103,66 @@ class DecoderConfig:
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
 
+    @property
+    def kv_layers(self) -> int:
+        """Layers that keep K/V: every layer, or a hybrid's attention blocks."""
+        if self.block_pattern is None:
+            return self.num_layers
+        return self.block_pattern.count("*")
+
+    @property
+    def mamba_layers(self) -> int:
+        return 0 if self.block_pattern is None else self.block_pattern.count("M")
+
+    def describe(self) -> str:
+        if self.block_pattern is None:
+            return f"{self.num_layers}-layer decoder, hidden {self.hidden_size}"
+        p = self.block_pattern
+        return (f"hybrid stack of {len(p)} blocks ({p.count('M')} Mamba2, {p.count('*')} "
+                f"attention, {p.count('-')} MLP), hidden {self.hidden_size}")
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridDecoderConfig(DecoderConfig):
+    """A hybrid stack (Nemotron-H): one character of ``block_pattern`` a
+    block, "M" a Mamba2 mixer (sizes in ``mamba``), "*" attention, "-" an
+    relu2 MLP (down(relu(up(x))^2), no gate), each
+    h = h + block(rms_norm(h)); ``num_layers`` is the pattern's length;
+    attention without positional encoding."""
+
+    block_pattern: str = ""
+    mamba: Optional[Mamba2Config] = None
+
+    def __post_init__(self):
+        pattern = self.block_pattern
+        if not pattern or set(pattern) - set("M*-") or len(pattern) != self.num_layers:
+            raise ValueError(f"block_pattern must be {self.num_layers} of 'M', '*', '-'")
+        if "M" in pattern and (self.mamba is None or self.mamba.conv_kernel != 4):
+            raise ValueError("a block_pattern with Mamba2 blocks needs mamba sizes with a "
+                             "4-tap convolution (the state's ring has four slots)")
+
+
+def new_cache(config: DecoderConfig, batch: int, max_len: int, device) -> KVCache:
+    """A zeroed decode cache for ``config``: K/V for its attention layers
+    and, for a hybrid stack, each row's Mamba2 state."""
+    return KVCache.create(config.kv_layers, batch, max_len, config.num_kv_heads,
+                          config.head_dim_, config.dtype, device, config.mamba,
+                          config.mamba_layers)
+
+
+def _refuse_hybrid(config: DecoderConfig, what: str) -> None:
+    if config.block_pattern is not None:
+        raise NotImplementedError(
+            f"{what} is not ported for a {config.describe()}: a hybrid decoder's "
+            "recurrent state cannot be extended by a padded chunk")
+
 
 def _position_tables(config: DecoderConfig, positions: torch.Tensor):
-    """cos/sin [b, s, head_dim]; positions [b, s] or [3, b, s] (M-RoPE)."""
+    """cos/sin [b, s, head_dim]; positions [b, s] or [3, b, s] (M-RoPE);
+    (None, None) for a hybrid stack, whose attention has no positional
+    encoding."""
+    if config.block_pattern is not None:
+        return None, None
     if config.mrope_section is not None:
         if positions.dim() == 2:
             positions = positions[None].expand(3, *positions.shape)
@@ -289,9 +365,29 @@ def _layer_body(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer over a chunk, attending jointly over the valid
     cached keys (when given) and the causal chunk; returns (x, k, v)."""
-    b, s, _ = x.shape
-    hd = config.head_dim_
     h = rms_norm(x, layer["input_norm"], config.rms_norm_eps)
+    out, k, v = _attention(config, h, layer, cos, sin, mask, cache_k, cache_v, cache_mask)
+    x = x + linear(out, layer["o_proj"])
+    h = rms_norm(x, layer["post_attn_norm"], config.rms_norm_eps)
+    x = x + _mlp(config, h, layer["mlp"])
+    return x, k, v
+
+
+def _mlp(config: DecoderConfig, h: torch.Tensor, params: Params) -> torch.Tensor:
+    return relu2_mlp(h, params) if config.block_pattern is not None else swiglu_mlp(h, params)
+
+
+def _attention(
+    config: DecoderConfig, h: torch.Tensor, layer: Params,
+    cos: Optional[torch.Tensor], sin: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+    cache_k: Optional[torch.Tensor], cache_v: Optional[torch.Tensor],
+    cache_mask: Optional[torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GQA attention of the normed chunk h [b, s, hidden] (rotary unless
+    cos is None) over the valid cached keys (when given) and the causal
+    chunk; returns (heads' output [b, s, heads * hd] before o_proj, k, v)."""
+    b, s, _ = h.shape
+    hd = config.head_dim_
     if "qkv_proj" in layer:
         qdim = config.num_heads * hd
         kvdim = config.num_kv_heads * hd
@@ -303,8 +399,9 @@ def _layer_body(
         q = linear(h, layer["q_proj"], layer.get("q_bias")).reshape(b, s, config.num_heads, hd)
         k = linear(h, layer["k_proj"], layer.get("k_bias")).reshape(b, s, config.num_kv_heads, hd)
         v = linear(h, layer["v_proj"], layer.get("v_bias")).reshape(b, s, config.num_kv_heads, hd)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    if cos is not None:
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
 
     kvh = config.num_kv_heads
     rep = config.num_heads // kvh
@@ -329,11 +426,62 @@ def _layer_body(
     else:
         probs = torch.softmax(logits_new, dim=-1).to(v.dtype).to(torch.float32)
         out = torch.einsum("bgrqk,bkgd->bqgrd", probs, v.to(torch.float32))
-    out = out.reshape(b, s, config.num_heads * hd).to(x.dtype)
-    x = x + linear(out, layer["o_proj"])
-    h = rms_norm(x, layer["post_attn_norm"], config.rms_norm_eps)
-    x = x + swiglu_mlp(h, layer["mlp"])
-    return x, k, v
+    return out.reshape(b, s, config.num_heads * hd).to(h.dtype), k, v
+
+
+_BLOCK_STACKS = {"M": "mamba", "*": "attention", "-": "mlp"}
+
+
+def _hybrid_stack(config: DecoderConfig, x: torch.Tensor, params: Params,
+                  attend: Callable[[int, torch.Tensor, Params], torch.Tensor],
+                  mix: Callable[[int, torch.Tensor, Params], torch.Tensor]) -> torch.Tensor:
+    """x [b, s, hidden] through a hybrid stack in its pattern's order, each
+    block h = h + block(rms_norm(h)), then the final norm, which is
+    returned.  ``params["layers_stacked"]`` holds three stacks, "mamba",
+    "attention" and "mlp", whose layer i is the i-th block of its kind;
+    ``attend(i, h, layer)`` gives attention block i's heads' output (before
+    o_proj), ``mix(i, h, layer)`` Mamba2 block i's output.  Each block's
+    residual add and the next norm are one ``add_rms_norm``."""
+    stacked, eps = params["layers_stacked"], config.rms_norm_eps
+    seen = {"M": 0, "*": 0, "-": 0}
+    delta = None
+    for kind in config.block_pattern:
+        i = seen[kind]
+        seen[kind] += 1
+        layer = _pick_layer(stacked[_BLOCK_STACKS[kind]], i)
+        x, h = add_rms_norm(x, delta, layer["norm"], eps)
+        if kind == "M":
+            delta = mix(i, h, layer)
+        elif kind == "*":
+            delta = linear(attend(i, h, layer), layer["o_proj"])
+        else:
+            delta = _mlp(config, h, layer)
+    return add_rms_norm(x, delta, params["final_norm"], eps)[1]
+
+
+def _hybrid_decode(config: DecoderConfig, x: torch.Tensor, params: Params,
+                   kv: Callable[[int], Tuple[torch.Tensor, torch.Tensor]],
+                   cache_mask: torch.Tensor, lengths: torch.Tensor,
+                   conv: torch.Tensor, ssm: torch.Tensor, new_k: list, new_v: list):
+    """One decode token x [b, 1, hidden] through a hybrid stack: attention
+    block i over ``kv(i)``'s cached keys (its new K/V appended to new_k /
+    new_v), Mamba2 block i stepping each row's state ``conv[i]`` /
+    ``ssm[i]`` in place at token index ``lengths``; returns the final
+    norm's output."""
+    cursor = lengths.to(torch.int32)
+
+    def attend(i, h, layer):
+        cache_k, cache_v = kv(i)
+        out, k, v = _attention(config, h, layer, None, None, None, cache_k, cache_v,
+                               cache_mask)
+        new_k.append(k[:, 0])
+        new_v.append(v[:, 0])
+        return out
+
+    def mix(i, h, layer):
+        return mamba2_step(config.mamba, h, layer, cursor, conv[i], ssm[i])
+
+    return _hybrid_stack(config, x, params, attend, mix)
 
 
 def lm_logits(config: DecoderConfig, params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -362,7 +510,8 @@ def prefill_scan(
 ) -> Tuple[torch.Tensor, KVCache]:
     """Prefill a padded prompt [b, s_pad, hidden] into a fresh cache; returns
     the logits at each row's last valid position and the cache with its
-    cursors at the prompt lengths."""
+    cursors at the prompt lengths.  A hybrid stack's Mamba2 blocks leave
+    each row's state as of its last valid token: pad positions step nothing."""
     b, s = input_embeds.shape[:2]
     if s > cache.k.shape[2]:
         raise ValueError(f"prefill chunk {s} exceeds the {cache.k.shape[2]}-token cache")
@@ -372,13 +521,26 @@ def prefill_scan(
     mask = causal_mask(s, s, device) + length_mask(s, lengths_dev)
     stacked = params["layers_stacked"]
     x = input_embeds
-    for idx in range(num_stacked_layers(stacked)):
-        x, k, v = _layer_body(
-            config, x, _pick_layer(stacked, idx), cos, sin, mask, None, None, None
-        )
-        cache.k[idx, :, :s] = k.to(cache.k.dtype)
-        cache.v[idx, :, :s] = v.to(cache.v.dtype)
-    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    if config.block_pattern is not None:
+        def attend(i, h, layer):
+            out, k, v = _attention(config, h, layer, cos, sin, mask, None, None, None)
+            cache.k[i, :, :s] = k.to(cache.k.dtype)
+            cache.v[i, :, :s] = v.to(cache.v.dtype)
+            return out
+
+        def mix(i, h, layer):
+            return mamba2_prefill(config.mamba, h, layer, lengths_dev, cache.conv[i],
+                                  cache.ssm[i])
+
+        x = _hybrid_stack(config, x, params, attend, mix)
+    else:
+        for idx in range(num_stacked_layers(stacked)):
+            x, k, v = _layer_body(
+                config, x, _pick_layer(stacked, idx), cos, sin, mask, None, None, None
+            )
+            cache.k[idx, :, :s] = k.to(cache.k.dtype)
+            cache.v[idx, :, :s] = v.to(cache.v.dtype)
+        x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     cache.set_lengths(prompt_lengths)
     return _last_logits(config, params, x, prompt_lengths), cache
 
@@ -424,6 +586,7 @@ def _extend_pass(
     (padding included) lands at (row, cursor + 0..s-1) in one indexed store
     per tensor, and the cursors move by ``n_valid`` in place.  Returns the
     last valid position's logits [b, vocab]."""
+    _refuse_hybrid(config, "extending a cache by a chunk (lookahead windows, chat turns)")
     b, s = x.shape[:2]
     device = x.device
     cos, sin = _position_tables(config, positions)
@@ -681,6 +844,7 @@ def decode_loop_lookahead(
     later call of the request: on the card its windows after the first
     replay one CUDA graph.  The last logits returned are a copy, free of
     the next window's."""
+    _refuse_hybrid(config, "the lookahead window pass")
     runner = cache.window_pass
     if runner is None or not runner.binds(cache, params, window):
         runner = cache.window_pass = WindowPass(config, params, cache, window)
@@ -821,7 +985,8 @@ def _dense_token_step(
     its device cursor ``lengths`` (the new token attends to itself out of
     the cache), then write every layer's new K/V in place at (row,
     lengths[row]) in one indexed store.  Returns the next logits [b,
-    vocab]; the caller advances ``lengths``.  No host cursor is read."""
+    vocab]; the caller advances ``lengths``.  No host cursor is read.  A
+    hybrid stack steps each row's Mamba2 state in the cache in place."""
     b = token.shape[0]
     positions = pos_vec[:, None]
     if config.mrope_section is not None:
@@ -833,14 +998,18 @@ def _dense_token_step(
         torch.float32)[:, None, None, :]
     stacked = params["layers_stacked"]
     new_k, new_v = [], []
-    for idx in range(num_stacked_layers(stacked)):
-        x, k, v = _layer_body(
-            config, x, _pick_layer(stacked, idx), cos, sin, None,
-            cache.k[idx], cache.v[idx], cache_mask,
-        )
-        new_k.append(k[:, 0])
-        new_v.append(v[:, 0])
-    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    if config.block_pattern is not None:
+        x = _hybrid_decode(config, x, params, lambda i: (cache.k[i], cache.v[i]), cache_mask,
+                           lengths, cache.conv, cache.ssm, new_k, new_v)
+    else:
+        for idx in range(num_stacked_layers(stacked)):
+            x, k, v = _layer_body(
+                config, x, _pick_layer(stacked, idx), cos, sin, None,
+                cache.k[idx], cache.v[idx], cache_mask,
+            )
+            new_k.append(k[:, 0])
+            new_v.append(v[:, 0])
+        x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     logits = lm_logits(config, params, x)[:, 0]
     rows = torch.arange(b, device=token.device)
     cursor = lengths.long()
@@ -930,7 +1099,7 @@ def decode_loop_scan_constrained(
 def _paged_token_step(
     config: DecoderConfig, params: Params, token: torch.Tensor, pos_vec: torch.Tensor,
     pool_k: torch.Tensor, pool_v: torch.Tensor, page_tables: torch.Tensor,
-    lengths: torch.Tensor,
+    lengths: torch.Tensor, state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode step for every slot over a paged KV pool
     (pool [L, n_pages, page, kvh, hd], page_tables [slots, max_pages]):
@@ -938,7 +1107,9 @@ def _paged_token_step(
     window masked past its cursor, the new token attends to itself out of
     the pool, and after the stack every layer's new K/V lands in place at
     (page_tables[i, len // page], len % page).  Returns the next logits
-    [slots, vocab]; the caller advances ``lengths``."""
+    [slots, vocab]; the caller advances ``lengths``.  A hybrid stack's
+    Mamba2 blocks step ``state`` = (conv [n_mamba, slots, conv_dim, 4],
+    ssm [n_mamba, slots, H, P, N]), the slots' rows, in place."""
     slots, max_pages = page_tables.shape
     page = pool_k.shape[2]
     width = max_pages * page
@@ -952,15 +1123,23 @@ def _paged_token_step(
         torch.float32)[:, None, None, :]
     stacked = params["layers_stacked"]
     new_k, new_v = [], []
-    for idx in range(num_stacked_layers(stacked)):
-        ck = pool_k[idx][page_tables].reshape(slots, width, *pool_k.shape[3:])
-        cv = pool_v[idx][page_tables].reshape(slots, width, *pool_v.shape[3:])
-        x, k, v = _layer_body(
-            config, x, _pick_layer(stacked, idx), cos, sin, None, ck, cv, cache_mask
-        )
-        new_k.append(k[:, 0])
-        new_v.append(v[:, 0])
-    x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    if config.block_pattern is not None:
+        def kv(i):
+            return (pool_k[i][page_tables].reshape(slots, width, *pool_k.shape[3:]),
+                    pool_v[i][page_tables].reshape(slots, width, *pool_v.shape[3:]))
+
+        x = _hybrid_decode(config, x, params, kv, cache_mask, lengths, state[0], state[1],
+                           new_k, new_v)
+    else:
+        for idx in range(num_stacked_layers(stacked)):
+            ck = pool_k[idx][page_tables].reshape(slots, width, *pool_k.shape[3:])
+            cv = pool_v[idx][page_tables].reshape(slots, width, *pool_v.shape[3:])
+            x, k, v = _layer_body(
+                config, x, _pick_layer(stacked, idx), cos, sin, None, ck, cv, cache_mask
+            )
+            new_k.append(k[:, 0])
+            new_v.append(v[:, 0])
+        x = rms_norm(x, params["final_norm"], config.rms_norm_eps)
     logits = lm_logits(config, params, x)[:, 0]
     rows = torch.arange(slots, device=token.device)
     page_idx = page_tables[rows, torch.div(lengths, page, rounding_mode="floor").long()].long()
@@ -975,10 +1154,12 @@ def decode_loop_paged(
     start_position: torch.Tensor, pool_k: torch.Tensor, pool_v: torch.Tensor,
     page_tables: torch.Tensor, lengths: torch.Tensor, num_steps: int, *,
     eos_id: int, budget: Sequence[int],
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Greedy decode of up to ``num_steps`` tokens for every slot over the
     paged pool (updated in place), ending once every row has hit EOS or its
-    host-side ``budget``.  Returns (tokens [slots, num_steps] on the device,
+    host-side ``budget``; a hybrid stack also steps the slots' recurrent
+    ``state`` in place.  Returns (tokens [slots, num_steps] on the device,
     last logits, pool_k, pool_v, lengths)."""
     slots = page_tables.shape[0]
     start = _to_device(start_position, torch.int32, first_logits.device).expand(slots)
@@ -989,7 +1170,7 @@ def decode_loop_paged(
         token = picker(carry["logits"])
         carry["logits"] = _paged_token_step(
             config, params, token, start + step_idx, pool_k, pool_v, page_tables,
-            carry["lengths"])
+            carry["lengths"], state)
         carry["lengths"] = carry["lengths"] + 1
         return token
 
@@ -1003,7 +1184,7 @@ def decode_loop_paged_constrained(
     page_tables: torch.Tensor, lengths: torch.Tensor, constraint: DecodeConstraint,
     num_steps: int, *, eos_id: int, budget: Sequence[int],
     draw_uniforms: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None,
-    temperature=None,
+    temperature=None, state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """``decode_loop_paged`` with each row's grammar mask (rows with
     ``active`` False decode free-form).  With ``draw_uniforms`` every step
@@ -1020,7 +1201,7 @@ def decode_loop_paged_constrained(
         token = picker(carry["logits"])
         carry["logits"] = _paged_token_step(
             config, params, token, start + step_idx, pool_k, pool_v, page_tables,
-            carry["lengths"])
+            carry["lengths"], state)
         carry["lengths"] = carry["lengths"] + 1
         return token
 
@@ -1031,6 +1212,7 @@ def decode_loop_paged_constrained(
 __all__ = [
     "DecodeConstraint",
     "DecoderConfig",
+    "HybridDecoderConfig",
     "TokenPicker",
     "WindowPass",
     "constrained_argmax",
@@ -1047,6 +1229,7 @@ __all__ = [
     "init_decoder_params",
     "lm_logits",
     "lookahead_decode",
+    "new_cache",
     "params_from_numpy",
     "prefill_scan",
     "quantize_stacked_params",

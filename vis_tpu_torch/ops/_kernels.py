@@ -57,6 +57,9 @@ _SIGNATURES = {
     "vt_i8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_q4_i8_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
     "vt_q4_i8s_matmul": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "vt_ssm_step": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "vt_add_rms_norm": (_P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "vt_gated_group_norm": (_P, _P, _I, _P, _P, _I, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

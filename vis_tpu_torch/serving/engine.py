@@ -51,6 +51,7 @@ from vis_tpu_torch.models.common.decoder import (
     extend_scan,
     fuse_stacked_projections,
     init_decoder_params,
+    new_cache,
     prefill_scan,
     quantize_stacked_params,
     stack_decoder_layers,
@@ -289,7 +290,12 @@ class Engine:
     # -- KV-cached chat sessions -------------------------------------------
     def chat_start(self, system_context: str) -> "ChatSession":
         """Open a conversation: the system context prefills once into a
-        session cache of ``max_cache_tokens``, which every turn extends."""
+        session cache of ``max_cache_tokens``, which every turn extends.
+        A hybrid decoder raises ``NotImplementedError``: its turns would
+        extend a recurrent state by padded chunks."""
+        if self.text_config.block_pattern is not None:
+            raise NotImplementedError(f"chat sessions are not ported for a "
+                                      f"{self.text_config.describe()}")
         with self._lock:
             cache, logits, next_pos, _, _ = self._prefill_request(
                 system_context, None, max_tokens=1, max_image_dim=0, full_cache=True)
@@ -471,8 +477,7 @@ class Engine:
             next_pos = seq_len
         positions = torch.from_numpy(positions).to(self.device)
 
-        cache = KVCache.create(tc.num_layers, 1, cache_len, tc.num_kv_heads,
-                               tc.head_dim_, tc.dtype, self.device)
+        cache = new_cache(tc, 1, cache_len, self.device)
         with span("engine.prefill", logger):
             logits, cache = prefill_scan(
                 tc, self.params["text"], embeds, positions, cache, [seq_len]

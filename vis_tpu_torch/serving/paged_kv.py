@@ -6,6 +6,10 @@ pages, sized to the workload, holds every decode slot's KV:
   pool k/v      [layers, n_pages, page, kv_heads, head_dim]   (on the device)
   page_tables   [slots, max_pages] int32                       (on the device)
 
+A hybrid decoder's slots also hold a fixed recurrent state each
+(``state``: its Mamba2 layers' conv ring and SSM state, one row a slot),
+allocated and released with the page buffers; no page maps it.
+
 Page 0 is a reserved trash page: unmapped table entries point at it, so
 every device-side lookup stays in bounds (inactive slots write their
 garbage there; reads are masked by the length cursor).  Allocation is
@@ -18,7 +22,7 @@ reads the device.
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,7 +37,8 @@ class PagedKVPool:
 
     def __init__(self, num_layers: int, slots: int, max_len: int, kv_heads: int,
                  head_dim: int, page_size: int, pool_tokens: int,
-                 dtype=torch.bfloat16, device="cpu"):
+                 dtype=torch.bfloat16, device="cpu",
+                 state: Optional[Callable[[], Tuple[torch.Tensor, ...]]] = None):
         if max_len % page_size:
             raise ValueError(
                 f"kv_cache_max_tokens ({max_len}) must be a multiple of "
@@ -47,7 +52,9 @@ class PagedKVPool:
         self.device = torch.device(device)
         self._shape = (num_layers, self.n_pages, page_size, kv_heads, head_dim)
         self._dtype = dtype
+        self._make_state = state
         self.k = self.v = None
+        self.state: Optional[Tuple[torch.Tensor, ...]] = None
         self.ensure_buffers()
         self.tables_host = np.zeros((slots, self.max_pages), np.int32)
         self.page_tables = torch.zeros((slots, self.max_pages), dtype=torch.int32,
@@ -68,19 +75,23 @@ class PagedKVPool:
     def memory_bytes(self) -> int:
         if self.k is None:
             return 0
-        return 2 * self.k.numel() * self.k.element_size()
+        return sum(t.numel() * t.element_size() for t in (self.k, self.v, *(self.state or ())))
 
     # -- elastic buffers ---------------------------------------------------
     def release_buffers(self) -> None:
-        """Drop the device page buffers (call only when no slot is active):
-        an idle scheduler returns the pool's memory to the other engines."""
+        """Drop the device page buffers and slot states (call only when no
+        slot is active): an idle scheduler returns the pool's memory to the
+        other engines."""
         self.k = self.v = None
+        self.state = None
 
     def ensure_buffers(self) -> None:
-        """Re-allocate the device page buffers if released."""
+        """Re-allocate the device page buffers (and slot states) if released."""
         if self.k is None:
             self.k = torch.zeros(self._shape, dtype=self._dtype, device=self.device)
             self.v = torch.zeros(self._shape, dtype=self._dtype, device=self.device)
+            if self._make_state is not None:
+                self.state = self._make_state()
 
     # -- allocation --------------------------------------------------------
     def _set_row(self, slot: int, row: np.ndarray) -> None:

@@ -4,7 +4,9 @@ Counterpart of ``vis_tpu/serving/scheduler.py`` (paged layout).  One
 scheduler thread owns a text model's decode state on the engine's device:
 
 - S decode slots map their KV through a shared page pool
-  (``serving/paged_kv.py``), pages reserved per request at admission;
+  (``serving/paged_kv.py``), pages reserved per request at admission; a
+  hybrid decoder's slots also hold a fixed recurrent state each (its
+  Mamba2 layers' conv ring and SSM state), moved in with the request;
 - a request arrives prefilled (the engine's own prefill, handed over with
   ``submit_prefilled``) or as a prompt (``submit``: whole-prompt prefill
   here), and its staging cache is copied into its slot's pages;
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import queue
 import threading
 import time
@@ -46,9 +49,10 @@ from vis_tpu_torch.models.common.decoder import (
     DecoderConfig,
     decode_loop_paged,
     decode_loop_paged_constrained,
+    new_cache,
     prefill_scan,
 )
-from vis_tpu_torch.models.common.layers import KVCache, embed
+from vis_tpu_torch.models.common.layers import KVCache, embed, recurrent_state
 from vis_tpu_torch.serving.paged_kv import PagedKVPool
 
 logger = setup_logger(__name__, level="INFO", component="SCHEDULER")
@@ -116,10 +120,15 @@ class ContinuousBatchingScheduler:
         self.paged = True
         self.decode_chunk = decode_chunk
         self.min_json_tokens = min_json_tokens
+        state = None
+        if text_config.mamba_layers:
+            state = functools.partial(recurrent_state, text_config.mamba,
+                                      text_config.mamba_layers, num_slots, text_config.dtype,
+                                      self.device)
         self.pool = PagedKVPool(
-            text_config.num_layers, num_slots, max_len, text_config.num_kv_heads,
+            text_config.kv_layers, num_slots, max_len, text_config.num_kv_heads,
             text_config.head_dim_, page_size=page_size, pool_tokens=pool_tokens,
-            dtype=text_config.dtype, device=self.device,
+            dtype=text_config.dtype, device=self.device, state=state,
         )
         logger.info(
             f"paged KV: {self.pool.n_pages - 1} pages x {page_size} tokens "
@@ -331,10 +340,8 @@ class ContinuousBatchingScheduler:
         padded[0, :seq_len] = ids
         embeds = embed(torch.from_numpy(padded).to(self.device), self.params["embed_tokens"])
         positions = torch.arange(bucket, dtype=torch.int32, device=self.device)[None]
-        c = self.config
-        cache = KVCache.create(c.num_layers, 1, bucket, c.num_kv_heads, c.head_dim_,
-                               c.dtype, self.device)
-        return prefill_scan(c, self.params, embeds, positions, cache, [seq_len])
+        cache = new_cache(self.config, 1, bucket, self.device)
+        return prefill_scan(self.config, self.params, embeds, positions, cache, [seq_len])
 
     def _admit_one(self) -> bool:
         """Move one waiting request into a free slot; True if one was admitted."""
@@ -378,7 +385,9 @@ class ContinuousBatchingScheduler:
     def _activate_slot(self, free: int, request: Request, cache: KVCache,
                        logits: torch.Tensor, seq_len: int, kv_len: int) -> None:
         """Copy a batch-1 staging cache into the slot's reserved pages and
-        arm the slot's cursor, budget, temperature and grammar row."""
+        arm the slot's cursor, budget, temperature and grammar row.  A
+        hybrid request's recurrent state replaces the slot's whole state:
+        nothing of the slot's last occupant carries over."""
         page = self.pool.page_size
         n_src = cache.k.shape[2] // page
         owned = self.pool._owned[free][:n_src]
@@ -386,6 +395,9 @@ class ContinuousBatchingScheduler:
         for src, dst in ((cache.k, self.pool.k), (cache.v, self.pool.v)):
             pages = src[:, 0, : n_src * page].reshape(src.shape[0], n_src, page, *src.shape[3:])
             dst[:, idx] = pages[:, : len(owned)].to(dst.dtype)
+        if self.pool.state is not None:
+            for src, dst in zip((cache.conv, cache.ssm), self.pool.state):
+                dst[:, free] = src[:, 0]
         self._logits[free] = logits[0].to(torch.float32)
         slot = self.slots[free]
         slot.request = request
@@ -443,7 +455,7 @@ class ContinuousBatchingScheduler:
         self.stats["max_live"] = max(self.stats["max_live"], self.active_count)
         start = time.perf_counter()
         with span("scheduler.decode"):
-            common = dict(eos_id=self.tokenizer.eos_id, budget=budget)
+            common = dict(eos_id=self.tokenizer.eos_id, budget=budget, state=self.pool.state)
             if self._json_dev is not None:
                 ok_t, trans_t, cost_t, cls_t = self._json_dev
                 constraint = DecodeConstraint(
